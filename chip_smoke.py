@@ -2,32 +2,54 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (color-only `PoseDetection.detect` on the
-640x480 fixture frame with the 1,950-template fixture bank, ICP off) on the
-card and checks it, in phases:
+Drives the port's paths on the card and checks them, in phases:
 
 0. the card's name and power limit, torch and CUDA versions; no card -> exit 1;
-1. build the similarity kernels from `linemod_tpu_torch/csrc/` with nvcc;
-2. each kernel against its plain PyTorch version on the card, exactly, at
-   the fixture's shapes and on a 1280x960 random frame with a synthetic
-   bank, with CUDA-event times (median of 20) of both;
-3. the fixture end to end through `detect_submit` / `detect_collect`: the
-   quantized map against the golden, the packed [512, 5] candidates against
+1. build the kernels from `linemod_tpu_torch/csrc/` with nvcc (one process
+   per source, all started together), and the 96,300-template bank of the
+   reference's shipped settings (the fixture bank's 1,950 templates followed
+   by 94,350 synthetic ones, seed 7) with its match state;
+2. each kernel against its plain PyTorch version on the card, exactly, with
+   CUDA-event times (median of 20) of both, the least time the card could
+   take (bound) and, where one PyTorch call computes the same function, that
+   call's time: the coarse and fine scans at the fixture's shapes and on a
+   1280x960 random frame with a 2,048-template synthetic bank; the masked
+   max at the fixture's coarse planes with the 96,300 bank and at 1280x960,
+   with templates whose bounds fit no cell;
+3. the main path: the fixture (640x480, the 1,950-template bank, ICP off)
+   through `detect_submit` / `detect_collect`. The quantized maps equal the
+   golden's with no pixel differing, the packed [512, 5] candidates equal
    the JAX reference's (tests/goldens/img0_torch_ref.npz; ints exact,
-   similarities atol 1e-4), the top 8 against tests/goldens/img0_golden.npz,
-   the pose against the JAX pose (0.5 mm, 1e-4) and ADD <= 21 mm against
-   the ground truth; the kernels' launch counts in that run must be > 0;
-4. 20 more detect calls: median device ms of `detect_frame` (CUDA events),
-   host post-processing ms and whole `detect` ms;
-5. a JSON line of per-kernel results, then the result line
+   similarities atol 1e-4), the top 8 equal tests/goldens/img0_golden.npz,
+   the pose equals the JAX pose (0.5 mm, 1e-4) with ADD <= 21 mm against the
+   ground truth, and both scan kernels were launched;
+4. 20 more detect calls on the main path: median device ms of
+   `detect_frame` (CUDA events), host post-processing ms and whole `detect`
+   ms; then a torch.profiler window of 5 frames: device busy ms, device
+   operations per frame and the largest kernels;
+5. the large-bank path: the same frame through `PoseDetection` with the
+   96,300 bank, which takes the prefiltered cut. Its packed [513, 5], the
+   per-template maxes, the cut's four arrays and the pose equal the JAX
+   golden (tests/goldens/img0_bigbank_ref.npz), the cut is proved exact,
+   and the masked-max kernel was launched. The streaming and the dense cut
+   give the same packed candidates. A bank of identical templates forces a
+   saturated cut, which is retried on the streaming cut. Times: median
+   whole `detect` ms (20 calls) and a profile as in phase 4, one-frame ms
+   of the streaming and dense cuts;
+6. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+   then each kernel against its plain twin;
+7. a JSON line of per-kernel results, then the result line
    {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
-line.
+line. Each path resets the kernels' launch counts just before it runs and
+reads them just after; launches made to compare a kernel with its plain
+version do not count.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -42,8 +64,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(REPO, "example")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "img0_golden.npz")
 TORCH_REF = os.path.join(REPO, "tests", "goldens", "img0_torch_ref.npz")
+BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
 REPS = 20
 SIM_ATOL = 1e-4
+# the least-time bound: device memory at 3.35 TB/s, and int32 adds at the
+# 67 T/s float32 rate outside the tensor cores (H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -79,28 +106,74 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of bytes over the memory rate and
+    operations over the core rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / CORE_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fitting_cells(lim: torch.Tensor, ch: int, cw: int) -> int:
+    """Cells the masked max must score: sum over templates of the fit box."""
+    ny = lim[:, 0].long().clamp(0, ch)
+    nx = lim[:, 1].long().clamp(0, cw)
+    return int((ny * nx).sum().item())
+
+
+def profile_frames(fn, frames: int = 5) -> tuple[float, float, list]:
+    """torch.profiler over `frames` calls of fn(): device busy ms per frame
+    (the sum of the kernels' and copies' self device time), device
+    operations per frame, and the five largest by self device time as
+    (name, ms per frame)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def self_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    busy = sum(self_ms(e) for e in ops) / frames
+    count = sum(e.count for e in ops) / frames
+    top = sorted(((e.key[:60], self_ms(e) / frames) for e in ops), key=lambda t: -t[1])[:5]
+    return busy, count, top
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     from linemod_tpu_torch.config import load_model_properties, load_settings
-    from linemod_tpu_torch.models.template_bank import TemplateBank, make_synthetic_bank
+    from linemod_tpu_torch.config import CameraParameters, ModelProperties, TemplateSettings
+    from linemod_tpu_torch.models.template_bank import TemplateBank, concat_banks, make_synthetic_bank
+    from linemod_tpu_torch.ops import cuda_lib, probes
     from linemod_tpu_torch.ops import similarity_cuda as sc
-    from linemod_tpu_torch.ops.detect_core import _pack, detect_frame
+    from linemod_tpu_torch.ops.detect_core import detect_frame
     from linemod_tpu_torch.ops.extract import downsample2
     from linemod_tpu_torch.ops.gradients import quantize_color_gradients
     from linemod_tpu_torch.ops.matching import (
         MatchConfig,
-        _match_with_planes,
         _planes_3d,
-        _planes_from_quant,
+        _template_maxes,
         build_match_state,
         candidate_cut,
+        candidate_cut_prefilter,
         coarse_similarity,
     )
     from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER
     from linemod_tpu_torch.pipeline.benchmark import model_vertices, read_ground_truth_pose, score_add
-    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection
+    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection, make_match_config, resolve_prefilter_packed
     from linemod_tpu_torch.utils.png import read_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,24 +192,38 @@ def main() -> int:
     phase(0, f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # -- phase 1: build
+    # -- phase 1: build the kernels and the banks
     t0 = time.perf_counter()
+    cuda_lib.build(cuda_lib.SOURCES)
     sc.load_library()
-    phase(1, f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {sc.build_info['path']}")
-    for line in sc.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print("  ptxas:", line.strip())
+    probes.load_library()
+    phase(1, f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, info in cuda_lib.build_info.items():
+        print(f"  {name}: {info['path']} ({info['seconds']:.2f} s)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print("  ptxas:", line.strip())
 
-    # -- fixture inputs
     cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
     props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
     bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
     color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
     depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"))
     ref = np.load(TORCH_REF)
+    big_ref = np.load(BIGBANK_REF)
     det = PoseDetection(bank, cam, settings, props, dev)
     state = det.state
     cfg = state.cfg
+    t0 = time.perf_counter()
+    big_bank, _ = concat_banks(
+        [bank, make_synthetic_bank(94350, seed=7, bbox_wh=64, image_wh=(640, 480))]
+    )
+    det_big = PoseDetection(big_bank, cam, settings, props, dev)
+    big_state = det_big.state
+    torch.cuda.synchronize()
+    phase(1, f"{big_bank.num_templates}-template bank and its match state ({big_state.n_templates} "
+             f"padded) built in {time.perf_counter() - t0:.2f} s")
+    check(big_bank.num_templates == 96300 and big_state.n_templates == 96512, "96,300 bank size")
     color_c = det.recenter(np.ascontiguousarray(color))
     colorf = torch.from_numpy(color_c).to(dev).float()
 
@@ -160,23 +247,52 @@ def main() -> int:
         "fine": (cuda_ms(lambda: sc.fine_scores(*fine_args)),
                  cuda_ms(lambda: sc.fine_scores_plain(*fine_args))),
     }
+    n, f = state.off3_coarse.shape[:2]
+    k = cand_t.shape[0]
+    bounds = {
+        "coarse": bound(nbytes(coarse_p, state.off3_coarse) + 4 * n * ch * cw, n * f * ch * cw),
+        "fine": bound(nbytes(fine_p, cand_t, base_yx) + k * f * 12 + 4 * k * win * win,
+                      k * f * win * win),
+    }
+    # the nearest single PyTorch call: embedding_bag's sum over a materialised
+    # [rows, F] index into the planes as a float column (index built untimed)
+    coarse_idx = (sc._flat_offsets(coarse_p, state.off3_coarse)[:, None, :]
+                  + (torch.arange(ch, device=dev)[:, None] * coarse_p.shape[2]
+                     + torch.arange(cw, device=dev)[None, :]).reshape(1, -1, 1)).reshape(-1, f)
+    sub = (torch.arange(win, device=dev)[:, None] * fine_p.shape[2]
+           + torch.arange(win, device=dev)[None, :]).reshape(1, -1, 1)
+    fine_base = (base_yx[:, 0].long() * fine_p.shape[2] + base_yx[:, 1].long())[:, None, None]
+    fine_idx = (sc._flat_offsets(fine_p, state.off3_fine[cand_t.long()])[:, None, :]
+                + fine_base + sub).reshape(-1, f)
+    coarse_w = coarse_p.reshape(-1, 1).float()
+    fine_w = fine_p.reshape(-1, 1).float()
+    emb = torch.nn.functional.embedding_bag
+    lib_c = emb(coarse_idx, coarse_w, mode="sum").reshape(n, ch, cw)
+    lib_f = emb(fine_idx, fine_w, mode="sum").reshape(k, win, win)
+    check(max_abs_err(lib_c, sc.coarse_scores(*coarse_args)) == 0, "embedding_bag != coarse kernel")
+    check(max_abs_err(lib_f, sc.fine_scores(*fine_args)) == 0, "embedding_bag != fine kernel")
+    library = {
+        "coarse": cuda_ms(lambda: emb(coarse_idx, coarse_w, mode="sum")),
+        "fine": cuda_ms(lambda: emb(fine_idx, fine_w, mode="sum")),
+    }
+    del coarse_idx, fine_idx, lib_c, lib_f
     phase(2, f"fixture shapes: coarse planes {tuple(coarse_p.shape)} x {tuple(state.off3_coarse.shape)} "
-             f"-> [{state.off3_coarse.shape[0]}, {ch}, {cw}] max|kernel-plain| {err_c}; "
-             f"fine planes {tuple(fine_p.shape)} x {cand_t.shape[0]} candidates win {win} "
+             f"-> [{n}, {ch}, {cw}] max|kernel-plain| {err_c}; "
+             f"fine planes {tuple(fine_p.shape)} x {k} candidates win {win} "
              f"max|kernel-plain| {err_f}")
     for name, (k_ms, p_ms) in times.items():
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPS}, {card})")
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, embedding_bag {library[name]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} (median of {REPS}, {card})")
 
     big_cfg = MatchConfig(width=1280, height=960)
-    big_bank = make_synthetic_bank(2048, seed=7, bbox_wh=64, image_wh=(1280, 960))
-    big = build_match_state(big_bank, big_cfg, dev)
+    syn_bank = make_synthetic_bank(2048, seed=7, bbox_wh=64, image_wh=(1280, 960))
+    big = build_match_state(syn_bank, big_cfg, dev)
     rng = np.random.default_rng(7)
     big_color = torch.from_numpy(rng.integers(0, 256, (960, 1280, 3)).astype(np.float32)).to(dev)
     big_fine = _planes_3d(big_color, big_cfg.t_fine, big.max_cells_fine)
     big_coarse = _planes_3d(downsample2(big_color), big_cfg.t_coarse, big.max_cells_coarse)
     bch, bcw = big.coarse_shape[:2]
     lim = big.lim_coarse.cpu().numpy()
-    k = 512
     bt = rng.integers(0, big.n_templates, k)
     bgy = rng.integers(0, 1 << 20, k) % lim[bt, 0]
     bgx = rng.integers(0, 1 << 20, k) % lim[bt, 1]
@@ -194,96 +310,243 @@ def main() -> int:
              f"kernel {big_ms[0]:.4f} ms; fine max|kernel-plain| {err_bf}, kernel {big_ms[1]:.4f} ms")
     check(err_c == 0 and err_f == 0 and err_bc == 0 and err_bf == 0, "kernel != plain")
 
-    # -- phase 3: the fixture end to end
+    # the masked max at the 96,300 bank's state and at 1280x960; some
+    # templates get bounds that fit no cell, so -1 is exercised
+    def no_fit(lim_t, rows):
+        lim_t = lim_t.clone()
+        lim_t[rows[0]] = 0
+        lim_t[rows[1], 0] = 0
+        lim_t[rows[2], 1] = -3
+        return lim_t
+
+    big_coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, big_state.max_cells_coarse)
+    max_lim = no_fit(big_state.lim_coarse, (5, 40000, 96299))
+    max_args = (big_coarse_p, big_state.off3_coarse, max_lim, ch, cw)
+    got_max = sc.coarse_max(*max_args)
+    err_m = max_abs_err(got_max, sc.coarse_max_plain(*max_args))
+    check(bool((got_max[[5, 40000, 96299]] == -1).all()), "no-fit templates must give -1")
+    max_ms = (cuda_ms(lambda: sc.coarse_max(*max_args)), cuda_ms(lambda: sc.coarse_max_plain(*max_args)))
+    nm = big_state.off3_coarse.shape[0]
+    bounds["coarse_max"] = bound(nbytes(big_coarse_p, big_state.off3_coarse, max_lim) + 4 * nm,
+                                 (f + 1) * fitting_cells(max_lim, ch, cw))
+    big_max_args = (big_coarse, big.off3_coarse, no_fit(big.lim_coarse, (0, 1, 2047)), bch, bcw)
+    err_bm = max_abs_err(sc.coarse_max(*big_max_args), sc.coarse_max_plain(*big_max_args))
+    big_max_ms = cuda_ms(lambda: sc.coarse_max(*big_max_args))
+    phase(2, f"coarse_max: fixture coarse planes x {tuple(big_state.off3_coarse.shape)} -> [{nm}] "
+             f"max|kernel-plain| {err_m}; kernel {max_ms[0]:.4f} ms, plain {max_ms[1]:.4f} ms, "
+             f"bound {bounds['coarse_max'][0]:.4f} ms by {bounds['coarse_max'][1]}; "
+             f"1280x960 x 2048 max|kernel-plain| {err_bm}, kernel {big_max_ms:.4f} ms "
+             f"(median of {REPS}, {card})")
+    check(err_m == 0 and err_bm == 0, "coarse_max kernel != plain")
+
+    # -- phase 3: the main path, the fixture end to end
     q0 = quantize_color_gradients(colorf)[0].cpu().numpy()
     q1 = quantize_color_gradients(downsample2(colorf))[0].cpu().numpy()
     mism0 = int((q0 != ref["quant0"]).sum())
     mism1 = int((q1 != ref["quant1"]).sum())
-    agree = 1.0 - mism0 / q0.size
     check(np.array_equal(ref["quant0"], np.load(GOLDEN)["quant"]), "golden quant maps disagree")
     phase(3, f"quantized maps vs golden: {mism0} of {q0.size} level-0 and {mism1} of {q1.size} "
-             f"level-1 pixels differ (agreement {agree:.6f})")
-    check(agree >= 0.999, f"quantizer agreement {agree} < 0.999")
+             f"level-1 pixels differ")
+    check(mism0 == 0 and mism1 == 0, "the card's quantized maps differ from the golden")
 
-    sc.coarse_scores.launches = 0
-    sc.fine_scores.launches = 0
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
     handle = det.detect_submit(color, depth)
     packed = handle[0].cpu().numpy()
     poses = det.detect_collect(handle, 1)
     launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches}
-    phase(3, f"main path launches: coarse_scores {launches['coarse']}, fine_scores {launches['fine']}")
+    phase(3, f"main path launches: coarse_scores {launches['coarse']}, fine_scores {launches['fine']}, "
+             f"coarse_max {sc.coarse_max.launches}")
     check(launches["coarse"] > 0 and launches["fine"] > 0, "a kernel was not launched on the main path")
 
-    if mism0 or mism1:
-        # the card's atan2 flipped pixels at bin boundaries: check the kernels
-        # and the cut on the reference's quantized maps instead
-        qt = [torch.from_numpy(ref[k_]).to(dev) for k_ in ("quant0", "quant1")]
-        check_packed = _pack(_match_with_planes(
-            state,
-            _planes_from_quant([qt[0]], cfg.t_fine, state.max_cells_fine),
-            _planes_from_quant([qt[1]], cfg.t_coarse, state.max_cells_coarse),
-        )).cpu().numpy()
-        source = "the golden quantized maps"
-    else:
-        check_packed = packed
-        source = "the card's own quantized maps"
-    ints_equal = np.array_equal(check_packed[:, [0, 1, 2, 4]], ref["packed"][:, [0, 1, 2, 4]])
-    sim_err = float(np.abs(check_packed[:, 3] - ref["packed"][:, 3]).max())
-    n_valid = int(check_packed[:, 4].sum())
-    phase(3, f"packed [512, 5] from {source} vs JAX reference: ints equal {ints_equal}, "
+    ints_equal = np.array_equal(packed[:, [0, 1, 2, 4]], ref["packed"][:, [0, 1, 2, 4]])
+    sim_err = float(np.abs(packed[:, 3] - ref["packed"][:, 3]).max())
+    n_valid = int(packed[:, 4].sum())
+    phase(3, f"packed {list(packed.shape)} vs JAX reference: ints equal {ints_equal}, "
              f"max|sim diff| {sim_err:.3g}, {n_valid} valid")
-    check(ints_equal and sim_err <= SIM_ATOL, "packed candidates differ from the JAX reference")
-    top = check_packed[check_packed[:, 4] > 0.5][:8]
+    check(packed.shape == (512, 5) and ints_equal and sim_err <= SIM_ATOL,
+          "packed candidates differ from the JAX reference")
+    top = packed[packed[:, 4] > 0.5][:8]
     top_err = float(np.abs(top - np.load(GOLDEN)["top_matches"]).max())
     phase(3, f"top 8 vs golden top_matches: max|diff| {top_err:.3g}")
     check(top.shape == (8, 5) and top_err <= SIM_ATOL, "top 8 differ from the golden")
 
-    check(len(poses) == 1, f"{len(poses)} poses detected")
-    pose = poses[0]
-    dt = float(np.abs(pose.translation - ref["translation"]).max())
-    dq = float(np.abs(pose.quaternion - ref["quaternion"]).max())
     gt = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
     verts = model_vertices(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"), dev)
-    add = score_add(verts, gt, pose)
-    phase(3, f"pose t={np.round(pose.translation, 3).tolist()} mm: max|dt| {dt:.3g} mm, "
-             f"max|dq| {dq:.3g} vs JAX; ADD {add:.3f} mm vs ground truth")
-    check(dt <= 0.5 and dq <= 1e-4, "pose differs from the JAX pose")
-    check(add <= OBJECT_DIAMETER, f"ADD {add} mm > {OBJECT_DIAMETER}")
 
-    # -- phase 4: a few requests
-    dev_ms, post_ms, detect_ms = [], [], []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        det.detect(color, depth, 1)
-        torch.cuda.synchronize()
-        detect_ms.append((time.perf_counter() - t0) * 1e3)
-        frame = torch.from_numpy(np.ascontiguousarray(det.recenter(color))).to(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        packed_t = detect_frame(state, frame)
-        end.record()
-        end.synchronize()
-        dev_ms.append(start.elapsed_time(end))
-        t0 = time.perf_counter()
-        det.detect_collect((packed_t, color_c, det.recenter(np.ascontiguousarray(depth))), 1)
-        post_ms.append((time.perf_counter() - t0) * 1e3)
-    med = {k_: statistics.median(v) for k_, v in
-           (("device", dev_ms), ("post", post_ms), ("detect", detect_ms))}
+    def check_pose(poses_, want, label, n_phase):
+        check(len(poses_) == 1, f"{label}: {len(poses_)} poses detected")
+        pose = poses_[0]
+        dt = float(np.abs(pose.translation - want["translation"]).max())
+        dq = float(np.abs(pose.quaternion - want["quaternion"]).max())
+        add = score_add(verts, gt, pose)
+        phase(n_phase, f"{label} pose t={np.round(pose.translation, 3).tolist()} mm: max|dt| {dt:.3g} mm, "
+              f"max|dq| {dq:.3g} vs JAX; ADD {add:.3f} mm vs ground truth")
+        check(dt <= 0.5 and dq <= 1e-4, f"{label}: pose differs from the JAX pose")
+        check(add <= OBJECT_DIAMETER, f"{label}: ADD {add} mm > {OBJECT_DIAMETER}")
+
+    check_pose(poses, ref, "main path", 3)
+
+    # -- phase 4: a few requests on the main path
+    def request_times(detector, reps):
+        dev_ms, post_ms, detect_ms = [], [], []
+        depth_c = detector.recenter(np.ascontiguousarray(depth))
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            detector.detect(color, depth, 1)
+            torch.cuda.synchronize()
+            detect_ms.append((time.perf_counter() - t0) * 1e3)
+            frame = torch.from_numpy(np.ascontiguousarray(detector.recenter(color))).to(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            packed_t = detect_frame(detector.state, frame)
+            end.record()
+            end.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            detector.detect_collect((packed_t, color_c, depth_c), 1)
+            post_ms.append((time.perf_counter() - t0) * 1e3)
+        return {k_: statistics.median(v) for k_, v in
+                (("device", dev_ms), ("post", post_ms), ("detect", detect_ms))}
+
+    def report_profile(n_phase, label, st, device_ms):
+        busy, count, top = profile_frames(lambda: detect_frame(st, frame))
+        phase(n_phase, f"{label} profile (torch.profiler, 5 frames): device busy {busy:.3f} ms "
+                       f"and {count:.0f} device operations per frame; idle {1 - busy / device_ms:.1%} "
+                       f"of the {device_ms:.3f} ms detect_frame; top: "
+                       + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+
+    frame = torch.from_numpy(color_c).to(dev)
+    med = request_times(det, REPS)
     phase(4, f"{REPS} detect calls: detect_frame device {med['device']:.3f} ms, host post "
              f"{med['post']:.3f} ms, whole detect {med['detect']:.3f} ms (medians; {card})")
+    report_profile(4, "main path", state, med["device"])
 
-    # -- phase 5: results
+    # -- phase 5: the large-bank path
+    big_cfg5 = big_state.cfg
+    check((big_cfg5.prefilter_sel, big_cfg5.scan_chunk) == (1024, 4096), f"large-bank config {big_cfg5}")
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    handle = det_big.detect_submit(color, depth)
+    big_packed = handle[0].cpu().numpy()
+    big_poses = det_big.detect_collect(handle, 1)
+    big_launches = {"coarse_max": sc.coarse_max.launches, "coarse": sc.coarse_scores.launches,
+                    "fine": sc.fine_scores.launches}
+    phase(5, f"large-bank path launches: {big_launches}, retries {det_big.retries}")
+    check(min(big_launches.values()) > 0, "a kernel was not launched on the large-bank path")
+    check(det_big.retries == 0, "the fixture frame's prefiltered cut was not proved exact")
+    ints_equal = np.array_equal(big_packed[:, [0, 1, 2, 4]], big_ref["packed"][:, [0, 1, 2, 4]])
+    sim_err = float(np.abs(big_packed[:, 3] - big_ref["packed"][:, 3]).max())
+    phase(5, f"packed {list(big_packed.shape)} vs JAX golden: ints equal {ints_equal}, max|sim diff| "
+             f"{sim_err:.3g}, cut_exact {big_packed[-1, 0]:.0f}, {int(big_packed[:, 4].sum())} valid")
+    check(big_packed.shape == (513, 5) and ints_equal and sim_err <= SIM_ATOL and big_packed[-1, 0] == 1.0,
+          "large-bank packed candidates differ from the JAX golden")
+    maxes = _template_maxes(big_state, big_coarse_p).cpu().numpy()
+    cut = candidate_cut_prefilter(big_state, big_coarse_p, big_cfg5.top_k)
+    cut_equal = {name: np.array_equal(a.cpu().numpy(), big_ref[name].astype(a.cpu().numpy().dtype))
+                 for name, a in zip(("top_sim", "cand_t", "cand_gy", "cand_gx"), cut[:4])}
+    phase(5, f"template maxes {list(maxes.shape)} equal the golden's: {np.array_equal(maxes, big_ref['maxes'])}; "
+             f"cut arrays equal: {cut_equal}; exact {bool(cut[4])}")
+    check(np.array_equal(maxes, big_ref["maxes"]) and all(cut_equal.values()) and bool(cut[4]),
+          "template maxes or cut arrays differ from the JAX golden")
+    check_pose(big_poses, big_ref, "large-bank", 5)
+
+    other = {}
+    for label, over in (("streaming", dict(prefilter_sel=0, scan_chunk=4096)),
+                        ("dense", dict(prefilter_sel=0, scan_chunk=0))):
+        st = dataclasses.replace(big_state, cfg=dataclasses.replace(big_cfg5, **over))
+        got = detect_frame(st, frame).cpu().numpy()
+        check(np.array_equal(got, big_packed[:-1]), f"the {label} cut differs from the prefiltered cut")
+        other[label] = cuda_ms(lambda st=st: detect_frame(st, frame), reps=3)
+    phase(5, f"the streaming and dense cuts give the prefiltered cut's packed [512, 5] exactly; "
+             f"one frame: streaming {other['streaming']:.3f} ms, dense {other['dense']:.3f} ms "
+             f"(CUDA events, median of 3; {card})")
+    big_med = request_times(det_big, REPS)
+    phase(5, f"{REPS} large-bank detect calls: detect_frame device {big_med['device']:.3f} ms, host post "
+             f"{big_med['post']:.3f} ms, whole detect {big_med['detect']:.3f} ms (medians; {card})")
+    report_profile(5, "large-bank path", big_state, big_med["device"])
+
+    # a saturated cut: identical templates tie every maximum at the selection
+    # boundary, threshold 0 keeps it above the threshold
+    sat_cam = CameraParameters(fx=500.0, fy=500.0, cx=160.0, cy=120.0, width=320, height=240)
+    sat_settings = TemplateSettings(detector_threshold=0.0, use_depth_improvement=False)
+    sat_bank = make_synthetic_bank(64, seed=9, bbox_wh=48, image_wh=(320, 240))
+    for name in ("feat0", "valid0", "feat1", "valid1"):
+        getattr(sat_bank, name)[:] = getattr(sat_bank, name)[:1]
+    sat_cfg = dataclasses.replace(make_match_config(sat_cam, sat_settings, 64),
+                                  prefilter_sel=20, top_k=16, scan_chunk=16)
+    det_sat = PoseDetection(sat_bank, sat_cam, sat_settings, ModelProperties(), dev, cfg=sat_cfg)
+    sat_color = np.random.default_rng(0).uniform(0, 255, (240, 320, 3)).astype(np.uint8)
+    sat_packed = det_sat.detect_submit(sat_color, np.zeros((240, 320), np.uint16))[0].cpu().numpy()
+    resolved = resolve_prefilter_packed(sat_packed, det_sat, sat_color)
+    streaming = detect_frame(det_sat.exact_state, torch.from_numpy(sat_color).to(dev)).cpu().numpy()
+    phase(5, f"saturated bank: cut_exact {sat_packed[-1, 0]:.0f}, retries {det_sat.retries}, "
+             f"result equals the streaming cut's: {np.array_equal(resolved, streaming)}")
+    check(sat_packed[-1, 0] == 0.0 and det_sat.retries == 1 and np.array_equal(resolved, streaming),
+          "the saturated frame was not retried on the streaming cut")
+
+    # -- phase 6: the probes
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
+    shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
+    for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
+        fn.launches = 0
+    words = probes.bitcast_u8_to_i32(x)
+    back = probes.bitcast_i32_to_u8(words)
+    rolled = [probes.roll2d_u8(x, sy, sx) for sy, sx in shifts]
+    probe_launches = {fn.__name__: fn.launches for fn in
+                      (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8)}
+    check(min(probe_launches.values()) > 0, "a probe kernel was not launched")
+    err_p1 = max(max_abs_err(words, probes.bitcast_u8_to_i32_plain(x)),
+                 max_abs_err(back, probes.bitcast_i32_to_u8_plain(words)), max_abs_err(back, x))
+    err_p2 = max(max_abs_err(r, probes.roll2d_u8_plain(x, sy, sx)) for r, (sy, sx) in zip(rolled, shifts))
+    host = x.cpu().numpy()
+    check(all(np.array_equal(r.cpu().numpy(), np.roll(np.roll(host, sy, 0), sx, 1))
+              for r, (sy, sx) in zip(rolled, shifts)), "roll2d_u8 != np.roll")
+    sy, sx = shifts[1]
+    probe_ms = {
+        "bitcast_u8_to_i32": (cuda_ms(lambda: probes.bitcast_u8_to_i32(x)),
+                              cuda_ms(lambda: probes.bitcast_u8_to_i32_plain(x)),
+                              cuda_ms(lambda: x.view(4, 4, 256).transpose(1, 2).contiguous())),
+        "bitcast_i32_to_u8": (cuda_ms(lambda: probes.bitcast_i32_to_u8(words)),
+                              cuda_ms(lambda: probes.bitcast_i32_to_u8_plain(words)),
+                              cuda_ms(lambda: words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).contiguous())),
+        "roll2d_u8": (cuda_ms(lambda: probes.roll2d_u8(x, sy, sx)),
+                      cuda_ms(lambda: probes.roll2d_u8_plain(x, sy, sx)),
+                      cuda_ms(lambda: torch.roll(x, (sy, sx), (0, 1)))),
+    }
+    check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
+          and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
+          "the permuted copies are not the bitcasts")
+    phase(6, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    for name, (k_ms, p_ms, l_ms) in probe_ms.items():
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms "
+              f"(median of {REPS}, {card})")
+    check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
+
+    # -- phase 7: results
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+    pallas = "linemod_tpu/ops/similarity_pallas.py"
+    p1_bound = bound(2 * x.numel(), 0)
     kernels = [
-        {"name": "coarse_scores", "route": "cuda", "source": "linemod_tpu_torch/csrc/similarity.cu",
-         "replaces": "linemod_tpu/ops/similarity_pallas.py:76",
-         "launches": launches["coarse"], "max_abs_err": max(err_c, err_bc),
-         "ms": times["coarse"][0], "plain_ms": times["coarse"][1]},
-        {"name": "fine_scores", "route": "cuda", "source": "linemod_tpu_torch/csrc/similarity.cu",
-         "replaces": "linemod_tpu/ops/similarity_pallas.py:261",
-         "launches": launches["fine"], "max_abs_err": max(err_f, err_bf),
-         "ms": times["fine"][0], "plain_ms": times["fine"][1]},
+        entry("coarse_scores", "similarity.cu", f"{pallas}:76", launches["coarse"], max(err_c, err_bc),
+              *times["coarse"], bounds["coarse"], library["coarse"]),
+        entry("fine_scores", "similarity.cu", f"{pallas}:261", launches["fine"], max(err_f, err_bf),
+              *times["fine"], bounds["fine"], library["fine"]),
+        entry("coarse_max", "similarity.cu", f"{pallas}:159", big_launches["coarse_max"], max(err_m, err_bm),
+              *max_ms, bounds["coarse_max"], None),
+        entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:22",
+              probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
+              probe_ms["bitcast_u8_to_i32"][2]),
+        entry("bitcast_i32_to_u8", "probes.cu", "scripts/test_bitcast.py:22",
+              probe_launches["bitcast_i32_to_u8"], err_p1, *probe_ms["bitcast_i32_to_u8"][:2], p1_bound,
+              probe_ms["bitcast_i32_to_u8"][2]),
+        entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
+              *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

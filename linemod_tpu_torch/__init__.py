@@ -1,11 +1,11 @@
 """linemod_tpu_torch — the PyTorch + CUDA port of linemod_tpu.
 
 The same LINE-MOD detection pipeline as `linemod_tpu/`, in plain PyTorch on
-tensors, with the two similarity scans of the main path as hand-written CUDA
-kernels for Hopper (`csrc/similarity.cu`). The layout mirrors `linemod_tpu/`
-module for module. Nothing here imports JAX, OpenCV or PyYAML; the numpy-only
-modules of `linemod_tpu` (`types`, `utils/geometry`, `utils/ply`,
-`ops/postprocess`) are shared as they are.
+tensors, with every Pallas kernel of the JAX package as a hand-written CUDA
+kernel for Hopper (`csrc/similarity.cu`, `csrc/probes.cu`). The layout
+mirrors `linemod_tpu/` module for module. Nothing here imports `linemod_tpu`,
+JAX, OpenCV or PyYAML: the numpy-only modules it needs (`types`,
+`utils/geometry`, `utils/ply`, `ops/postprocess`) are its own copies.
 """
 
 __version__ = "0.1.0"

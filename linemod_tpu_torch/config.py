@@ -1,8 +1,7 @@
 """Configuration: camera, template settings and model sidecars.
 
 Counterpart of `linemod_tpu/config.py`, with the same dataclasses and field
-names (so the shared numpy post-processing, linemod_tpu/ops/postprocess.py,
-takes them as they are), read through `utils/cvyaml` instead of PyYAML.
+names, read through `utils/cvyaml` instead of PyYAML.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
 // LINE-MOD similarity scans for Hopper (sm_90a): the coarse scan of every
-// template at every coarse grid cell, and the fine refine of the top-K
+// template at every coarse grid cell, its per-template masked max (phase 1
+// of the large-bank prefiltered cut), and the fine refine of the top-K
 // candidates over their sub-cell windows.
 //
-// Replaces the two Pallas TPU kernels of the main detection path:
+// Replaces the three Pallas TPU scan kernels:
 //   coarse_scores_kernel <- coarse_scores_pallas / _make_coarse_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:42-107
+//   coarse_max_kernel    <- coarse_max_pallas / _make_coarse_max_kernel,
+//                           linemod_tpu/ops/similarity_pallas.py:110-216
 //   fine_scores_kernel   <- fine_scores_pallas / _fine_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:222-299
 //
-// Both are gather-accumulates over per-template feature tables:
+// All three are gather-accumulates over per-template feature tables:
 //   score = sum_f planes[p_f, y + sy_f, x + sx_f]
 // on u8 linearized response planes [P(+1 zero plane), rows, stride]
 // (linemod_tpu_torch/ops/spread.py), with each feature given as a
@@ -31,8 +34,19 @@
 //   - a coarse block scores several templates per staged table, which
 //     amortises the staging and the cell index math;
 //   - outputs are written once, cropped to the real grid, coalesced.
-// None of the TPU kernel's artifacts carry over: no 32x128-cell tile limit,
-// no rolls, no 8-sublane output blocks, no VMEM gate; any frame whose planes
+// The masked max (coarse_max_kernel) does the coarse scan's accumulation but
+// writes one int32 per template instead of the [ch, cw] scores: at the
+// reference's configured 96,300-template bank (96,512 padded) the dense
+// scores would be 463 MB per frame. It reads the same L2-resident planes
+// about 96,512 * 64 * ~1,000 fitting cells ~ 6 G times, so it is bound by
+// those byte loads and their int32 adds (~6 G adds are ~90 us at the card's
+// 67 T/s CUDA-core rate), not by its ~78 MB of device-memory traffic
+// (~23 us). One block per template, looping over the fitting cells only;
+// the maximum is reduced in registers, then across the warp with
+// __reduce_max_sync, then across warps in shared memory.
+// None of the TPU kernels' artifacts carry over: no 32x128-cell tile limit,
+// no rolls, no 8-sublane output blocks, no VMEM gate, no SMEM cap on the
+// templates a program takes and no padding of N; any frame whose planes
 // fit in device memory (and in int32 offsets) works. Vector loads and
 // shared-memory plane tiles are left for later work.
 
@@ -44,6 +58,7 @@ namespace {
 
 constexpr int kCoarseThreads = 256;       // cells per coarse block
 constexpr int kCoarseTemplatesPerBlock = 4;
+constexpr int kMaxThreads = 256;  // threads per coarse_max block
 
 __device__ __forceinline__ int32_t flat_offset(const int32_t* trip, int rows,
                                                int stride) {
@@ -78,6 +93,47 @@ __global__ void coarse_scores_kernel(const uint8_t* __restrict__ planes,
     int32_t acc = 0;
     for (int k = 0; k < f; ++k) acc += base[o[k]];
     out[static_cast<size_t>(t0 + tt) * cells + g] = acc;
+  }
+}
+
+// out[t] = max over gy < min(lim[t, 0], ch), gx < min(lim[t, 1], cw) of
+//          sum_f planes[p_f, gy + sy_f, gx + sx_f], or -1 where no cell fits
+// grid: n blocks, one template each; kMaxThreads threads
+// dynamic shared memory: f int32
+__global__ void coarse_max_kernel(const uint8_t* __restrict__ planes, int rows,
+                                  int stride, const int32_t* __restrict__ off3,
+                                  const int32_t* __restrict__ lim, int f,
+                                  int ch, int cw, int32_t* __restrict__ out) {
+  extern __shared__ int32_t s_off[];
+  __shared__ int32_t s_warp_max[kMaxThreads / 32];
+  const int t = blockIdx.x;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    s_off[i] = flat_offset(off3 + (static_cast<size_t>(t) * f + i) * 3, rows,
+                           stride);
+  }
+  __syncthreads();
+
+  const int ny = max(0, min(lim[2 * t], ch));
+  const int nx = max(0, min(lim[2 * t + 1], cw));
+  const int cells = ny * nx;
+  int32_t best = -1;
+  for (int g = threadIdx.x; g < cells; g += blockDim.x) {
+    const int gy = g / nx;
+    const int gx = g - gy * nx;
+    const uint8_t* base = planes + static_cast<size_t>(gy) * stride + gx;
+    int32_t acc = 0;
+    for (int k = 0; k < f; ++k) acc += base[s_off[k]];
+    best = max(best, acc);
+  }
+  best = __reduce_max_sync(0xffffffffu, best);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp_max[warp] = best;
+  __syncthreads();
+  if (warp == 0) {
+    int32_t v = lane < kMaxThreads / 32 ? s_warp_max[lane] : -1;
+    v = __reduce_max_sync(0xffffffffu, v);
+    if (lane == 0) out[t] = v;
   }
 }
 
@@ -126,6 +182,18 @@ extern "C" int coarse_scores(const void* planes, int rows, int stride,
       static_cast<const uint8_t*>(planes), rows, stride,
       static_cast<const int32_t*>(off3), n, f, ch, cw,
       static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int coarse_max(const void* planes, int rows, int stride,
+                          const void* off3, const void* lim, int n, int f,
+                          int ch, int cw, void* out, void* stream) {
+  const size_t smem = sizeof(int32_t) * f;
+  coarse_max_kernel<<<n, kMaxThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), rows, stride,
+      static_cast<const int32_t*>(off3), static_cast<const int32_t*>(lim), f,
+      ch, cw, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

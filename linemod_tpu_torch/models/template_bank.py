@@ -1,9 +1,10 @@
-"""Dense template bank: loading and padding.
+"""Dense template bank: loading, padding and concatenation.
 
 Counterpart of the persistence half of `linemod_tpu/models/template_bank.py`
 (one npz of dense per-template arrays plus a json sidecar with the class id
-and modality flag). The bank stays host numpy: `ops/matching` derives the
-device tensors from it. Template generation is not ported yet.
+and modality flag) and of its `concat_banks`. The bank stays host numpy:
+`ops/matching` derives the device tensors from it. Template generation is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -92,6 +93,36 @@ def make_synthetic_bank(
         median_depth=np.full((n_templates,), 580.0, np.float32),
         hull=hull,
     )
+
+
+def concat_banks(banks: list[TemplateBank]) -> tuple[TemplateBank, np.ndarray]:
+    """Concatenate several banks into one scannable bank.
+
+    Returns (combined bank, offsets), where offsets[i] is the first global
+    template id of banks[i]; a global id maps to its bank by
+    np.searchsorted(offsets, id, side="right") - 1."""
+    if not banks:
+        raise ValueError("no banks")
+    dual = banks[0].dual_modality
+    if any(b.dual_modality != dual for b in banks):
+        raise ValueError("all banks must share the modality configuration")
+
+    def cat(field):
+        parts = [getattr(b, field) for b in banks]
+        if any(p is None for p in parts):
+            return None
+        return np.concatenate(parts, axis=0)
+
+    fields = ["feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull"]
+    if dual:
+        fields += ["nfeat0", "nvalid0", "nfeat1", "nvalid1"]
+    combined = TemplateBank(
+        class_id="+".join(b.class_id for b in banks),
+        dual_modality=dual,
+        **{f: cat(f) for f in fields},
+    )
+    offsets = np.cumsum([0] + [b.num_templates for b in banks])[:-1]
+    return combined, offsets
 
 
 def _pad_chunk(n: int) -> int:

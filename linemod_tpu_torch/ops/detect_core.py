@@ -3,7 +3,7 @@
 `detect_frame` runs the whole coarse-to-fine match of the bank on the
 state's device and returns one small packed array, so the host copies one
 [top_k, 5] float32 tensor back per frame. The color and depth checks run on
-the host afterwards (linemod_tpu/ops/postprocess.py), so in color-only mode
+the host afterwards (ops/postprocess.py), so in color-only mode
 the depth image never goes to the device.
 """
 
@@ -15,8 +15,11 @@ from .matching import MatchState, match_templates
 
 
 def _pack(m: dict) -> torch.Tensor:
-    """Match dict -> [top_k, 5] float32 (template_id, x, y, similarity, valid)."""
-    return torch.stack(
+    """Match dict -> [top_k, 5] float32 (template_id, x, y, similarity, valid),
+    plus one row (cut_exact, 0, 0, 0, 0) when the prefiltered cut ran: host
+    code that reads only valid rows ignores it, and the orchestrator reads
+    it to retry saturated frames."""
+    out = torch.stack(
         [
             m["template_id"].float(),
             m["x"].float(),
@@ -26,6 +29,11 @@ def _pack(m: dict) -> torch.Tensor:
         ],
         dim=1,
     )
+    if "cut_exact" in m:
+        flag = out.new_zeros((1, 5))
+        flag[0, 0] = m["cut_exact"].float()
+        out = torch.cat([out, flag], dim=0)
+    return out
 
 
 def detect_frame(state: MatchState, color: torch.Tensor) -> torch.Tensor:
@@ -33,5 +41,5 @@ def detect_frame(state: MatchState, color: torch.Tensor) -> torch.Tensor:
 
     color: [H, W, 3] uint8 BGR, principal-point recentred, on the state's
     device. Returns the packed [top_k, 5] float32 candidates, sorted by
-    similarity."""
+    similarity ([top_k + 1, 5] on the prefiltered cut)."""
     return _pack(match_templates(state, color.float()))

@@ -1,11 +1,19 @@
 """Detect-time template matching: the coarse-to-fine pyramid scan
-(counterpart of `linemod_tpu/ops/matching.py`, dense color-only path).
+(counterpart of `linemod_tpu/ops/matching.py`, color-only).
 
-- the whole bank is scored densely at the coarse level (half resolution,
-  T=8 spreading): every template at every coarse grid cell, by the
+- the whole bank is scored at the coarse level (half resolution, T=8
+  spreading): every template at every coarse grid cell, by the
   `coarse_scores` kernel;
 - an exact top-K of (template, cell) candidates, in the canonical order
-  (similarity descending, then flat template*G + cell index ascending);
+  (similarity descending, then flat template*G + cell index ascending),
+  by one of three cuts that give the same candidates:
+  - dense: one stable sort of the whole [N, G] similarity (the default);
+  - streaming (`MatchConfig.scan_chunk`): the bank in chunks, each chunk's
+    top-K merged into a running top-K;
+  - prefiltered (`MatchConfig.prefilter_sel`, banks above 8,192 templates):
+    one masked max per template (the `coarse_max` kernel), then the dense
+    cut over the best `prefilter_sel` templates only, with an on-device
+    proof that the result equals the dense cut (`cut_exact`);
 - each candidate is refined at the fine level (full resolution, T=2) over
   the sub-cell window its coarse cell covers, by the `fine_scores` kernel;
 - similarity = 100 * raw / (4 * num_features); matches are kept when both
@@ -13,8 +21,7 @@
 
 The outputs equal the JAX reference's: integers exactly, similarities bit
 for bit (the percent scale is computed in the same float32 order). Not
-ported yet: dual modality, the streaming, prefiltered, approximate and
-guarded cuts.
+ported yet: dual modality and the approximate and guarded cuts.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 from .extract import downsample2
 from .gradients import quantize_color_gradients
-from .similarity_cuda import coarse_scores, feature_plane_triplets, fine_scores
+from .similarity_cuda import coarse_max, coarse_scores, feature_plane_triplets, fine_scores
 from .spread import feature_flat_offsets, linear_plane_shape, linearized_response_planes
 
 MAX_RESPONSE = 4
@@ -42,6 +49,13 @@ class MatchConfig:
     threshold: float = 80.0
     dual_modality: bool = False
     template_chunk: int = 256  # the bank is padded to a multiple of this
+    # streaming cut: scan the bank in chunks of this many templates, merging
+    # a running exact top-K instead of sorting the dense [N, G] similarity
+    # (463 MB at 96,512 templates); 0 = the dense cut
+    scan_chunk: int = 0
+    # prefiltered exact cut: rescan only the best `prefilter_sel` templates
+    # by their masked max; 0 = off. Takes precedence over scan_chunk.
+    prefilter_sel: int = 0
 
 
 TENSOR_FIELDS = (
@@ -227,6 +241,96 @@ def candidate_cut(sim_c: torch.Tensor, cw: int, top_k: int):
     return top_sim, top_idx // n_cells, cand_g // cw, cand_g % cw
 
 
+def rank_by_sim_then_index(sim: torch.Tensor, idx: torch.Tensor, top_k: int):
+    """(sim desc, idx asc) top-K of a candidate set: a stable sort by index,
+    then a stable descending sort by similarity. Returns (top_sim, top_idx)."""
+    by_idx = torch.sort(idx, stable=True).indices
+    top_sim, order = torch.sort(sim[by_idx], descending=True, stable=True)
+    return top_sim[:top_k], idx[by_idx[order[:top_k]]]
+
+
+def _coarse_rows(state: MatchState, rows) -> MatchState:
+    """The state with its coarse-level fields cut to `rows` (a slice or an
+    index tensor); the fine-level fields stay whole."""
+    return dataclasses.replace(
+        state,
+        off_coarse=state.off_coarse[rows],
+        nf_coarse=state.nf_coarse[rows],
+        lim_coarse=state.lim_coarse[rows],
+        off3_coarse=state.off3_coarse[rows],
+    )
+
+
+def candidate_cut_streaming(state: MatchState, coarse_planes: torch.Tensor, top_k: int):
+    """The exact cut of candidate_cut without the dense [N, G] similarity:
+    the bank in chunks of `cfg.scan_chunk` templates (shrunk to a divisor of
+    N), each chunk's top-K merged into the running top-K. Chunks arrive in
+    ascending template order, so the merge keeps the canonical order.
+    Returns (top_sim, cand_t, cand_gy, cand_gx), each [top_k]."""
+    n = state.off_coarse.shape[0]
+    chunk = min(state.cfg.scan_chunk, n)
+    while n % chunk:
+        chunk -= 1
+    ch, cw = state.coarse_shape[0], state.coarse_shape[1]
+    n_cells = ch * cw
+    run_sim = run_pos = None
+    for t0 in range(0, n, chunk):
+        sim_c = coarse_similarity(_coarse_rows(state, slice(t0, t0 + chunk)), coarse_planes)
+        c_sim, ct, cgy, cgx = candidate_cut(sim_c, cw, top_k)
+        c_pos = (ct + t0) * n_cells + cgy * cw + cgx
+        if run_sim is not None:
+            c_sim, c_pos = rank_by_sim_then_index(
+                torch.cat([run_sim, c_sim]), torch.cat([run_pos, c_pos]), top_k
+            )
+        run_sim, run_pos = c_sim, c_pos
+    cand_g = run_pos % n_cells
+    return run_sim, run_pos // n_cells, cand_g // cw, cand_g % cw
+
+
+def _template_maxes(state: MatchState, coarse_planes: torch.Tensor) -> torch.Tensor:
+    """[N] float32 masked max percent similarity of each template over the
+    coarse cells where it fits, -1 where it fits nowhere. The `coarse_max`
+    kernel gives the raw maxima; the percent scale is monotone, so scaling
+    the max equals the max of the scaled similarities."""
+    ch, cw = state.coarse_shape[0], state.coarse_shape[1]
+    raw = coarse_max(coarse_planes, state.off3_coarse, state.lim_coarse, ch, cw)
+    pct = raw.float() * 100.0 / (MAX_RESPONSE * state.nf_coarse.float())
+    return torch.where(raw < 0, -1.0, pct)
+
+
+def candidate_cut_prefilter(state: MatchState, coarse_planes: torch.Tensor, top_k: int):
+    """Two-phase exact cut for large banks (`cfg.prefilter_sel`).
+
+    Phase 1: each template's masked max similarity. Phase 2: the best
+    n_sel = max(prefilter_sel, top_k) templates by (max desc, template asc),
+    rescanned densely in ascending template order, and cut exactly there.
+    Every global top-K entry's template has a max >= the K-th value v*, and
+    v* >= theta (the weakest selected max), since the selected templates
+    alone supply n_sel >= K values >= theta. So the cut is the dense cut
+    unless more than n_sel maxes reach theta (saturated) and v* == theta
+    above the threshold; `exact` is False only then, and the caller re-runs
+    such a frame on the streaming cut.
+    Returns (top_sim, cand_t, cand_gy, cand_gx, exact); exact is a bool
+    scalar tensor."""
+    cfg = state.cfg
+    n = state.off_coarse.shape[0]
+    n_sel = min(max(cfg.prefilter_sel, top_k), n)
+    m_pct = _template_maxes(state, coarse_planes)
+    sel_sim, sel_idx = rank_by_sim_then_index(
+        m_pct, torch.arange(n, device=m_pct.device), n_sel
+    )
+    theta = sel_sim[n_sel - 1]
+    saturated = (m_pct >= theta).sum() > n_sel
+    # ascending template order: the rescan's (sim desc, flat index asc) tie
+    # order then coincides with the global canonical order
+    sel_sorted = torch.sort(sel_idx).values
+    sim_c = coarse_similarity(_coarse_rows(state, sel_sorted), coarse_planes)
+    top_sim, ct, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], top_k)
+    v_star = top_sim[top_k - 1]
+    exact = ~saturated | (v_star > theta) | (v_star < cfg.threshold)
+    return top_sim, sel_sorted[ct], cand_gy, cand_gx, exact
+
+
 def fine_refine(state: MatchState, fine_planes, cand_t, cand_gy, cand_gx):
     """Refine each candidate over the fine sub-cell window of its coarse cell.
 
@@ -277,7 +381,22 @@ def _match_with_planes(state: MatchState, fine_planes, coarse_planes) -> dict:
             f"match the state's geometry {state.fine_shape}, {state.coarse_shape}"
         )
     cfg = state.cfg
-    sim_c = coarse_similarity(state, coarse_planes)
-    top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k)
+    n = state.off_coarse.shape[0]
+    cut_exact = None
+    if cfg.prefilter_sel and n > max(cfg.prefilter_sel, cfg.top_k):
+        top_sim, cand_t, cand_gy, cand_gx, cut_exact = candidate_cut_prefilter(
+            state, coarse_planes, cfg.top_k
+        )
+    elif cfg.scan_chunk and n > cfg.scan_chunk:
+        top_sim, cand_t, cand_gy, cand_gx = candidate_cut_streaming(
+            state, coarse_planes, cfg.top_k
+        )
+    else:
+        sim_c = coarse_similarity(state, coarse_planes)
+        top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k)
     sim, x, y = fine_refine(state, fine_planes, cand_t, cand_gy, cand_gx)
-    return finalize_matches(cfg, cand_t, sim, x, y, top_sim)
+    out = finalize_matches(cfg, cand_t, sim, x, y, top_sim)
+    if cut_exact is not None:
+        # the prefiltered cut's proof; detect_core packs it as an extra row
+        out["cut_exact"] = cut_exact
+    return out

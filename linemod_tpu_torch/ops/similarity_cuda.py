@@ -3,41 +3,31 @@
 
 - `coarse_scores(planes, off3, ch, cw)` -> int32 [N, ch, cw]: every template
   at every coarse grid cell.
+- `coarse_max(planes, off3, lim, ch, cw)` -> int32 [N]: each template's
+  masked max of the coarse scores over the cells where it fits, -1 where it
+  fits nowhere (phase 1 of the large-bank prefiltered cut).
 - `fine_scores(planes, off3, cand_t, base_yx, win)` -> int32 [K, win, win]:
   each candidate's template over the window at its fine-grid origin.
 
 A wrapper given CUDA tensors launches its kernel from `csrc/similarity.cu`
 or raises; given CPU tensors it runs the plain version, which is also what
 the CPU tests hold the JAX reference against. Each kernel launch adds one
-to the wrapper's `launches` count.
-
-The kernels are built with nvcc into `build/kernels/` at the root of the
-checkout on first use (a plain C interface, bound with ctypes), keyed by a
-hash of the source so an edited kernel is rebuilt.
+to the wrapper's `launches` count. `ops/cuda_lib.py` builds the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "similarity.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from . import cuda_lib
+
 # cap on the int64 gather-index tensor of one chunk of the plain versions
 _INDEX_BYTES = 64 * 1024 * 1024
+# templates per chunk of coarse_max_plain's masked max
+_MAX_CHUNK = 4096
 _INT32_MAX = 2**31 - 1
 _MAX_COARSE_CELLS = 65535 * 256  # grid.y limit x cells per coarse block
 
@@ -60,58 +50,17 @@ def feature_plane_triplets(feats, valids, t, zero_plane_idx):
 
 # ---------------------------------------------------------------- build ---
 
-_lock = threading.Lock()
-_library = None
-build_info: dict = {}  # path, seconds and compiler output of this process's load
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return path
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "coarse_scores": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "coarse_max": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "fine_scores": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P],
+}
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernels' shared library."""
-    global _library
-    with _lock:
-        if _library is not None:
-            return _library
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        path = os.path.join(BUILD_DIR, f"similarity-{digest[:16]}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True,
-            )
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.coarse_scores.argtypes = [p, i, i, p, i, i, i, i, p, p]
-        lib.coarse_scores.restype = i
-        lib.fine_scores.argtypes = [p, i, i, p, i, p, p, i, i, p, p]
-        lib.fine_scores.restype = i
-        build_info.update(path=path, seconds=time.perf_counter() - t0, log=log)
-        _library = lib
-        return lib
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    """Build (once per source version) and load `csrc/similarity.cu`."""
+    return cuda_lib.load("similarity", _SIGNATURES)
 
 
 def _check_tensor(name, x, dtype, ndim, device):
@@ -167,6 +116,26 @@ def coarse_scores_plain(planes, off3, ch: int, cw: int) -> torch.Tensor:
     return scores.reshape(-1, ch, cw)
 
 
+def coarse_max_plain(planes, off3, lim, ch: int, cw: int) -> torch.Tensor:
+    """Plain PyTorch masked max: the chunked coarse scan, then each
+    template's max over the cells with gy < lim[n, 0] and gx < lim[n, 1],
+    -1 where no cell fits (the dense form of coarse_max_pallas,
+    linemod_tpu/ops/similarity_pallas.py:159)."""
+    n = off3.shape[0]
+    dev = planes.device
+    out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if ch * cw == 0:
+        return out
+    gy = torch.arange(ch, device=dev)[None, :, None]
+    gx = torch.arange(cw, device=dev)[None, None, :]
+    for c0 in range(0, n, _MAX_CHUNK):
+        scores = coarse_scores_plain(planes, off3[c0 : c0 + _MAX_CHUNK], ch, cw)
+        lim_c = lim[c0 : c0 + _MAX_CHUNK, :, None, None]
+        fits = (gy < lim_c[:, 0]) & (gx < lim_c[:, 1])
+        out[c0 : c0 + _MAX_CHUNK] = torch.where(fits, scores, -1).flatten(1).amax(dim=1)
+    return out
+
+
 def fine_scores_plain(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
     """Plain PyTorch fine refine (linemod_tpu/ops/matching.py:635-644)."""
     stride = planes.shape[2]
@@ -206,12 +175,46 @@ def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
             off3.data_ptr(), n, f, ch, cw, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch("coarse_scores", err)
+    cuda_lib.check_launch("coarse_scores", err)
     coarse_scores.launches += 1
     return out
 
 
 coarse_scores.launches = 0
+
+
+def coarse_max(planes, off3, lim, ch: int, cw: int) -> torch.Tensor:
+    """int32 [N]: each template's max coarse score over the cells where it
+    fits (gy < min(lim[n, 0], ch), gx < min(lim[n, 1], cw)), -1 where none does.
+
+    planes, off3, ch, cw as for coarse_scores; lim: int32 [N, 2]."""
+    _check_planes(planes, off3)
+    _check_tensor("lim", lim, torch.int32, 2, planes.device)
+    n, f, _ = off3.shape
+    if lim.shape != (n, 2):
+        raise ValueError(f"lim must be [{n}, 2], got {tuple(lim.shape)}")
+    if not (0 <= ch <= planes.shape[1] and 0 <= cw <= planes.shape[2]):
+        raise ValueError(f"grid {ch}x{cw} unsupported for planes {tuple(planes.shape)}")
+    if planes.device.type == "cpu":
+        return coarse_max_plain(planes, off3, lim, ch, cw)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    out = torch.empty((n,), dtype=torch.int32, device=planes.device)
+    if n == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(planes.device):
+        err = lib.coarse_max(
+            planes.data_ptr(), planes.shape[1], planes.shape[2],
+            off3.data_ptr(), lim.data_ptr(), n, f, ch, cw, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check_launch("coarse_max", err)
+    coarse_max.launches += 1
+    return out
+
+
+coarse_max.launches = 0
 
 
 def fine_scores(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
@@ -243,7 +246,7 @@ def fine_scores(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
             base_yx.data_ptr(), k, win, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch("fine_scores", err)
+    cuda_lib.check_launch("fine_scores", err)
     fine_scores.launches += 1
     return out
 

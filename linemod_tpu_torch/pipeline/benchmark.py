@@ -7,12 +7,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from linemod_tpu.types import ObjectPose
-from linemod_tpu.utils.geometry import mat_to_quat, quat_to_mat
-from linemod_tpu.utils.ply import load_ply
-
 from ..ops.metrics import add_error
+from ..types import ObjectPose
 from ..utils.cvyaml import read_cvyaml
+from ..utils.geometry import mat_to_quat, quat_to_mat
+from ..utils.ply import load_ply
 
 
 def read_ground_truth_pose(path: str) -> ObjectPose:

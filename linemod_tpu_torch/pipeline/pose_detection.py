@@ -3,20 +3,30 @@
 Per frame: principal-point recentring (host) -> the match program on the
 device (ops/detect_core.detect_frame) -> one [top_k, 5] copy to the host ->
 grouping, the lazy per-candidate color/depth checks and the closed-form pose
-(host numpy, shared with the JAX package: linemod_tpu/ops/postprocess.py).
+(host numpy, ops/postprocess.py).
+
+Banks above 8,192 templates take the prefiltered exact cut; a frame whose
+cut cannot prove itself exact is re-run on the streaming exact cut
+(`resolve_prefilter_packed`).
 
 `detect_submit` launches the device work without waiting for it and
 `detect_collect` waits for it, so a caller can prepare the next frame while
 the card works. Not ported yet: dual modality, ICP refinement,
-`detect_stream`, batched frames and the large-bank cuts.
+`detect_stream` and batched frames.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from linemod_tpu.ops.postprocess import (
+from ..config import CameraParameters, ModelProperties, TemplateSettings
+from ..models.template_bank import _pad_bank, _pad_chunk
+from ..ops.detect_core import detect_frame
+from ..ops.matching import MatchConfig, build_match_state
+from ..ops.postprocess import (
     color_check_host,
     depth_p20_host,
     discard_small_groups,
@@ -25,10 +35,24 @@ from linemod_tpu.ops.postprocess import (
     reconstruct_pose,
 )
 
-from ..config import CameraParameters, ModelProperties, TemplateSettings
-from ..models.template_bank import _pad_bank, _pad_chunk
-from ..ops.detect_core import detect_frame
-from ..ops.matching import MatchConfig, build_match_state
+# banks above this many templates take the prefiltered cut
+BIG_BANK_TEMPLATES = 8192
+
+
+def resolve_prefilter_packed(packed: np.ndarray, owner, color_c: np.ndarray) -> np.ndarray:
+    """Handle the prefiltered cut's proof row (detect_core._pack appends it):
+    slice it off, and re-run a frame whose cut is not proved exact on the
+    exact streaming cut (`owner.exact_state`), on the same device.
+
+    owner: a PoseDetection; color_c: the recentred frame (host uint8)."""
+    top_k = owner.state.cfg.top_k
+    if packed.shape[0] != top_k + 1:
+        return packed
+    if packed[-1, 0] < 0.5:
+        frame = torch.from_numpy(np.ascontiguousarray(color_c, dtype=np.uint8)).to(owner.device)
+        packed = detect_frame(owner.exact_state, frame).cpu().numpy()
+        owner.retries += 1
+    return packed[:top_k]
 
 
 def make_match_config(
@@ -36,17 +60,30 @@ def make_match_config(
 ) -> MatchConfig:
     """The production color-only MatchConfig: the T=2/8 pyramid, the
     detector threshold from the settings, top-512 candidates, and the bank
-    padded to a multiple of min(256, next power of two of its size)."""
+    padded to a multiple of min(256, next power of two of its size). Banks
+    above 8,192 templates (the reference's settings configure 96,300) take
+    the prefiltered cut over the best max(2 * top_k, 1024) templates, with
+    the 4,096-template streaming cut kept for retries."""
+    top_k = 512
+    big_bank = n_templates > BIG_BANK_TEMPLATES
     return MatchConfig(
         width=cam.width,
         height=cam.height,
+        top_k=top_k,
         threshold=settings.detector_threshold,
         template_chunk=min(256, _pad_chunk(n_templates)),
+        scan_chunk=4096 if big_bank else 0,
+        prefilter_sel=max(2 * top_k, 1024) if big_bank else 0,
     )
 
 
 class PoseDetection:
-    """One model class's bank and its match state on `device`."""
+    """One model class's bank and its match state on `device`.
+
+    `cfg` replaces make_match_config's choice (to force a cut on a small
+    bank). With the prefiltered cut, `exact_state` is the same state on the
+    streaming cut, built here so that no collector ever builds it, and
+    `retries` counts the frames re-run on it."""
 
     def __init__(
         self,
@@ -55,6 +92,7 @@ class PoseDetection:
         settings: TemplateSettings,
         props: ModelProperties,
         device,
+        cfg: MatchConfig | None = None,
     ):
         if bank.dual_modality:
             raise NotImplementedError("dual-modality detection is not ported yet")
@@ -63,8 +101,14 @@ class PoseDetection:
         self.settings = settings
         self.props = props
         self.device = torch.device(device)
-        cfg = make_match_config(cam, settings, bank.num_templates)
+        if cfg is None:
+            cfg = make_match_config(cam, settings, bank.num_templates)
         self.state = build_match_state(_pad_bank(bank, cfg.template_chunk), cfg, self.device)
+        self.exact_state = None
+        if cfg.prefilter_sel:
+            exact_cfg = dataclasses.replace(cfg, prefilter_sel=0, scan_chunk=cfg.scan_chunk or 4096)
+            self.exact_state = dataclasses.replace(self.state, cfg=exact_cfg)
+        self.retries = 0
         self._hull_masks: dict[int, np.ndarray] = {}  # per template, built lazily
 
     def recenter(self, img: np.ndarray) -> np.ndarray:
@@ -100,9 +144,10 @@ class PoseDetection:
 
     def detect_collect(self, handle, num_objects: int = 1) -> list:
         """Wait for one submitted frame, copy its packed candidates to the
-        host, and run grouping, the checks and the pose math there."""
+        host, and run grouping, the checks and the pose math there. A frame
+        whose prefiltered cut is not proved exact is re-run first."""
         packed, color_c, depth_c = handle
-        packed = packed.cpu().numpy()
+        packed = resolve_prefilter_packed(packed.cpu().numpy(), self, color_c)
         valid = packed[:, 4] > 0.5
         tid = packed[valid, 0].astype(np.int64)
         xs = packed[valid, 1]

@@ -1,0 +1,93 @@
+"""Pose math on the host (numpy): quaternions and the view-ray rotation.
+
+The port's own copy of the parts of `linemod_tpu/utils/geometry.py` that
+detection uses. Conventions follow GLM, as the reference's template poses
+do: `look_at` is glm::lookAt (right-handed, the camera looks down -z in its
+own frame) and quaternions are (w, x, y, z), normalized.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def normalize(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, dtype=np.float64)
+    return v / np.linalg.norm(v)
+
+
+def look_at(eye, center, up) -> np.ndarray:
+    """glm::lookAt rotation+translation as a 4x4 (row-major math convention)."""
+    eye = np.asarray(eye, dtype=np.float64)
+    f = normalize(np.asarray(center, dtype=np.float64) - eye)
+    s = normalize(np.cross(f, np.asarray(up, dtype=np.float64)))
+    u = np.cross(s, f)
+    m = np.eye(4, dtype=np.float64)
+    m[0, :3] = s
+    m[1, :3] = u
+    m[2, :3] = -f
+    m[0, 3] = -s @ eye
+    m[1, 3] = -u @ eye
+    m[2, 3] = f @ eye
+    return m
+
+
+def mat_to_quat(m: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (w, x, y, z)."""
+    m = np.asarray(m, dtype=np.float64)[:3, :3]
+    t = np.trace(m)
+    if t > 0:
+        s = 0.5 / np.sqrt(t + 1.0)
+        w = 0.25 / s
+        x = (m[2, 1] - m[1, 2]) * s
+        y = (m[0, 2] - m[2, 0]) * s
+        z = (m[1, 0] - m[0, 1]) * s
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        s = 2.0 * np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2])
+        w = (m[2, 1] - m[1, 2]) / s
+        x = 0.25 * s
+        y = (m[0, 1] + m[1, 0]) / s
+        z = (m[0, 2] + m[2, 0]) / s
+    elif m[1, 1] > m[2, 2]:
+        s = 2.0 * np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2])
+        w = (m[0, 2] - m[2, 0]) / s
+        x = (m[0, 1] + m[1, 0]) / s
+        y = 0.25 * s
+        z = (m[1, 2] + m[2, 1]) / s
+    else:
+        s = 2.0 * np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1])
+        w = (m[1, 0] - m[0, 1]) / s
+        x = (m[0, 2] + m[2, 0]) / s
+        y = (m[1, 2] + m[2, 1]) / s
+        z = 0.25 * s
+    q = np.array([w, x, y, z], dtype=np.float64)
+    return q / np.linalg.norm(q)
+
+
+def quat_to_mat(q: np.ndarray) -> np.ndarray:
+    """Quaternion (w, x, y, z) -> 3x3 rotation matrix."""
+    w, x, y, z = np.asarray(q, dtype=np.float64)
+    n = w * w + x * x + y * y + z * z
+    s = 2.0 / n if n > 0 else 0.0
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return np.array(
+        [
+            [1.0 - (yy + zz), xy - wz, xz + wy],
+            [xy + wz, 1.0 - (xx + zz), yz - wx],
+            [xz - wy, yz + wx, 1.0 - (xx + yy)],
+        ],
+        dtype=np.float64,
+    )
+
+
+def view_ray_rotation(position: np.ndarray) -> np.ndarray:
+    """View-ray rotation adjustment of the reference's `calcRotation`: the
+    3x3 matrix lookAt((-x, -y, z), 0, (0,1,0)) that re-aims the template
+    rotation along the detection's actual view ray."""
+    x, y, z = np.asarray(position, dtype=np.float64)
+    eye = np.array([-x, -y, z], dtype=np.float64)
+    if eye[0] == 0.0 and eye[2] == 0.0:
+        eye[0] = 1e-11
+    return look_at(eye, np.zeros(3), np.array([0.0, 1.0, 0.0]))[:3, :3]

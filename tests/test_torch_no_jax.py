@@ -1,6 +1,9 @@
-"""The PyTorch port must run where JAX, OpenCV and PyYAML are not installed:
-importing every module of `linemod_tpu_torch` (in a fresh interpreter, with
-imports of those three blocked) must neither need nor load them."""
+"""The PyTorch port must run where JAX, OpenCV, PyYAML and the JAX package
+are not installed: importing every module of `linemod_tpu_torch` (in a
+fresh interpreter, with imports of those four blocked) must neither need
+nor load them, and no source of the port or of chip_smoke.py may import
+them. A name is blocked by its first dotted component, so
+`linemod_tpu_torch` itself is not."""
 
 import json
 import os
@@ -12,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "cv2", "yaml")
+BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "linemod_tpu")
 preloaded = {m for m in BLOCKED if m in sys.modules}
 
 
@@ -44,13 +47,46 @@ def test_port_imports_without_jax_cv2_yaml():
     assert result["loaded"] == []
 
 
+_SOURCE_BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "linemod_tpu")
+
+
+def _port_sources():
+    for root, _, files in os.walk(os.path.join(REPO, "linemod_tpu_torch")):
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _blocked_imports(path):
+    """(line, module) of each import statement in `path` whose module's first
+    dotted name is blocked. Relative imports (`from . import`) are the port's
+    own."""
+    hits = []
+    with open(path) as fh:
+        for line in fh:
+            words = line.replace(",", " ").split()
+            if words[:1] == ["from"] and len(words) > 1:
+                names = [words[1]]
+            elif words[:1] == ["import"]:
+                names = [w for w in words[1:] if w != "as"]
+            else:
+                continue
+            hits += [(line, n) for n in names if n.split(".")[0] in _SOURCE_BLOCKED]
+    return hits
+
+
 def test_port_sources_never_import_jax():
-    pkg = os.path.join(REPO, "linemod_tpu_torch")
-    for root, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    for line in fh:
-                        words = line.split()
-                        assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                                    and words[1].split(".")[0] in ("jax", "cv2", "yaml")), (f, line)
+    sources = list(_port_sources())
+    assert len(sources) >= 20 and os.path.exists(sources[-1])
+    for path in sources:
+        assert _blocked_imports(path) == [], path
+
+
+def test_blocked_import_scan_matches_whole_names(tmp_path):
+    """The scan blocks `linemod_tpu` and its submodules, and only them."""
+    src = tmp_path / "probe.py"
+    src.write_text(
+        "import linemod_tpu_torch.ops\nfrom linemod_tpu_torch import config\n"
+        "from . import cuda_lib\nimport numpy as np, linemod_tpu.types\n"
+        "from linemod_tpu.ops import postprocess\n    import jax.numpy as jnp\n"
+    )
+    assert [n for _, n in _blocked_imports(src)] == ["linemod_tpu.types", "linemod_tpu.ops", "jax.numpy"]
