@@ -14,8 +14,12 @@ Drives the port's paths on the card and checks them, in phases:
    take (bound) and, where one PyTorch call computes the same function, that
    call's time: the coarse and fine scans at the fixture's shapes and on a
    1280x960 random frame with a 2,048-template synthetic bank; the masked
-   max at the fixture's coarse planes with the 96,300 bank and at 1280x960,
-   with templates whose bounds fit no cell;
+   max at the fixture's coarse planes with the 96,300 bank (with its design
+   numbers: templates a group, chunks, staged bytes, lookups/ms) and at
+   1280x960, with templates whose bounds fit no cell, and its edge cases:
+   planes of 4 (sums of 256 and 512, past a byte lane), templates on one
+   plane, F=128, fit boxes 1-7 cells wide at every shift residue, bounds
+   beyond the grid, 0 and negative;
 3. the main path: the fixture (640x480, the 1,950-template bank, ICP off)
    through `detect_submit` / `detect_collect`. The quantized maps equal the
    golden's with no pixel differing, the packed [512, 5] candidates equal
@@ -67,10 +71,16 @@ TORCH_REF = os.path.join(REPO, "tests", "goldens", "img0_torch_ref.npz")
 BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
 REPS = 20
 SIM_ATOL = 1e-4
-# the least-time bound: device memory at 3.35 TB/s, and int32 adds at the
-# 67 T/s float32 rate outside the tensor cores (H100 SXM data sheet, 700 W)
+# the least-time bound: device memory at 3.35 TB/s (H100 SXM data sheet,
+# 700 W), and operations at a core rate. The scans 2.1 and 2.2 keep the
+# rule of their port: one int32 add per (feature, cell) at the 67 T/s
+# float32 rate outside the tensor cores (data sheet). The masked max 2.3
+# adds 4 cells per u32 add (byte lanes), at the INT32 rate: 64 INT32 lanes
+# per SM (Hopper architecture white paper) x 132 SMs x 1,980 MHz boost
+# (data sheet) = 16.7 T adds/s.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -106,11 +116,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
     """(ms, what sets it): the larger of bytes over the memory rate and
     operations over the core rate."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / CORE_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -118,11 +128,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def fitting_cells(lim: torch.Tensor, ch: int, cw: int) -> int:
-    """Cells the masked max must score: sum over templates of the fit box."""
+def fitting_cells(lim: torch.Tensor, ch: int, cw: int, weights=None) -> int:
+    """Cells the masked max must score: sum over templates of the fit box
+    (times weights[t], e.g. the template's features)."""
     ny = lim[:, 0].long().clamp(0, ch)
     nx = lim[:, 1].long().clamp(0, cw)
-    return int((ny * nx).sum().item())
+    cells = ny * nx if weights is None else ny * nx * weights.long()
+    return int(cells.sum().item())
 
 
 def profile_frames(fn, frames: int = 5) -> tuple[float, float, list]:
@@ -320,24 +332,71 @@ def main() -> int:
         return lim_t
 
     big_coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, big_state.max_cells_coarse)
+    plan = big_state.coarse_plan
     max_lim = no_fit(big_state.lim_coarse, (5, 40000, 96299))
     max_args = (big_coarse_p, big_state.off3_coarse, max_lim, ch, cw)
-    got_max = sc.coarse_max(*max_args)
+    got_max = sc.coarse_max(*max_args, plan=plan)
     err_m = max_abs_err(got_max, sc.coarse_max_plain(*max_args))
     check(bool((got_max[[5, 40000, 96299]] == -1).all()), "no-fit templates must give -1")
-    max_ms = (cuda_ms(lambda: sc.coarse_max(*max_args)), cuda_ms(lambda: sc.coarse_max_plain(*max_args)))
+    max_ms = (cuda_ms(lambda: sc.coarse_max(*max_args, plan=plan)),
+              cuda_ms(lambda: sc.coarse_max_plain(*max_args)))
     nm = big_state.off3_coarse.shape[0]
+    # what this run's data needs: each template's features off the zero
+    # plane, at each cell of its fit box, 4 cells per packed add
+    live = (big_state.off3_coarse[..., 0] < big_coarse_p.shape[0] - 1).sum(1)
+    lookups = fitting_cells(max_lim, ch, cw, live)
     bounds["coarse_max"] = bound(nbytes(big_coarse_p, big_state.off3_coarse, max_lim) + 4 * nm,
-                                 (f + 1) * fitting_cells(max_lim, ch, cw))
+                                 lookups / 4, INT32_OPS_PER_S)
     big_max_args = (big_coarse, big.off3_coarse, no_fit(big.lim_coarse, (0, 1, 2047)), bch, bcw)
-    err_bm = max_abs_err(sc.coarse_max(*big_max_args), sc.coarse_max_plain(*big_max_args))
-    big_max_ms = cuda_ms(lambda: sc.coarse_max(*big_max_args))
+    big_plan = sc.coarse_max_plan(big.off3_coarse, tuple(big_coarse.shape), bch, bcw)
+    err_bm = max_abs_err(sc.coarse_max(*big_max_args, plan=big_plan), sc.coarse_max_plain(*big_max_args))
+    big_max_ms = cuda_ms(lambda: sc.coarse_max(*big_max_args, plan=big_plan))
+    group, staged = plan.staged_bytes()
     phase(2, f"coarse_max: fixture coarse planes x {tuple(big_state.off3_coarse.shape)} -> [{nm}] "
              f"max|kernel-plain| {err_m}; kernel {max_ms[0]:.4f} ms, plain {max_ms[1]:.4f} ms, "
              f"bound {bounds['coarse_max'][0]:.4f} ms by {bounds['coarse_max'][1]}; "
-             f"1280x960 x 2048 max|kernel-plain| {err_bm}, kernel {big_max_ms:.4f} ms "
-             f"(median of {REPS}, {card})")
+             f"1280x960 x 2048 max|kernel-plain| {err_bm}, kernel {big_max_ms:.4f} ms, "
+             f"{big_plan.chunks} chunks (median of {REPS}, {card})")
+    print(f"  coarse_max design: G {sc.UNITS_PER_BLOCK // (plan.row_bands * plan.col_bands)} templates "
+          f"a group, {plan.chunks} chunks of {plan.chunk_planes} planes, staged rows {plan.stage_rows} x "
+          f"{4 * plan.pitch} B, {group} B staged a group, {staged} B staged in all (~ the L2 reads), "
+          f"{lookups} lookups, {lookups / max_ms[0] / 1e9:.3f} G lookups/ms")
     check(err_m == 0 and err_bm == 0, "coarse_max kernel != plain")
+
+    # the masked max's edge cases on the fixture's coarse planes
+    rng_e = np.random.default_rng(11)
+    n_e, p_e = 4096, big_coarse_p.shape[0] - 1
+
+    def edge_bank(f_e, one_plane=False, shifts=True):
+        planes_e = rng_e.integers(0, p_e, (n_e, 1 if one_plane else f_e)).repeat(f_e if one_plane else 1, 1)
+        sy = rng_e.integers(0, 8, (n_e, f_e)) if shifts else np.zeros((n_e, f_e), np.int64)
+        sx = rng_e.integers(0, 8, (n_e, f_e)) if shifts else np.zeros((n_e, f_e), np.int64)
+        lim_e = np.stack([rng_e.integers(1, ch + 1, n_e), rng_e.integers(1, cw + 1, n_e)], 1)
+        lim_e[:4] = [[99, 99], [0, 5], [-3, 4], [5, -1]]
+        return (torch.from_numpy(np.stack([planes_e, sy, sx], -1).astype(np.int32)).to(dev),
+                torch.from_numpy(lim_e.astype(np.int32)).to(dev))
+
+    full4 = torch.zeros_like(big_coarse_p)
+    full4[:-1, :ch, :cw] = 4
+    narrow_off3, narrow_lim = edge_bank(64)
+    narrow_lim[4:, 1] = torch.arange(n_e - 4, device=dev, dtype=torch.int32) % 7 + 1
+    edges = {
+        "planes of 4, F=64 (256)": (full4, *edge_bank(64, shifts=False)),
+        "planes of 4, F=128 (512)": (full4, *edge_bank(128, shifts=False)),
+        "all 64 features on one plane": (big_coarse_p, *edge_bank(64, one_plane=True)),
+        "F=128": (big_coarse_p, *edge_bank(128)),
+        "fit-box widths 1-7, sx 0-7": (big_coarse_p, narrow_off3, narrow_lim),
+    }
+    for name, (planes_e, off3_e, lim_e) in edges.items():
+        got_e = sc.coarse_max(planes_e, off3_e, lim_e, ch, cw)
+        err_e = max_abs_err(got_e, sc.coarse_max_plain(planes_e, off3_e, lim_e, ch, cw))
+        ok_e = err_e == 0 and bool((got_e[1:4] == -1).all()) and int(got_e[0]) >= 0
+        if name.startswith("planes of 4"):
+            ok_e = ok_e and int(got_e.max()) == 4 * off3_e.shape[1]
+        print(f"  coarse_max edge case {name}: {n_e} templates, lim beyond/0/negative included, "
+              f"max|kernel-plain| {err_e}, max {int(got_e.max())}")
+        check(ok_e, f"coarse_max edge case {name}")
+        err_m = max(err_m, err_e)
 
     # -- phase 3: the main path, the fixture end to end
     q0 = quantize_color_gradients(colorf)[0].cpu().numpy()

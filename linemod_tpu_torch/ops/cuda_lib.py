@@ -6,8 +6,10 @@ checkout, and bound with ctypes. A library's file name carries a hash of
 its source and the flags, so an edited kernel is rebuilt. `build(names)`
 starts one nvcc per source whose library is missing, all at once, and waits
 for every one of them; `load(name, signatures)` builds one source if needed
-and binds its C functions. Every C function launches on the stream it is
-given, does not synchronise, and returns cudaGetLastError() (0 = launched).
+and binds its C functions; `launch(...)` calls one of them on the current
+stream, the path every kernel wrapper takes. Every C function launches on
+the stream it is given, does not synchronise, and returns
+cudaGetLastError() (0 = launched).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -101,3 +105,31 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# (source, function) -> the bound C function, so that a launch after the
+# first takes no lock and no attribute lookup
+_bound: dict[tuple[str, str], object] = {}
+# the current stream's raw handle, without building a torch.cuda.Stream
+_raw_stream = getattr(
+    torch._C, "_cuda_getCurrentRawStream",
+    lambda index: torch.cuda.current_stream(index).cuda_stream,
+)
+
+
+def launch(source: str, signatures: dict, fn: str, device, *args) -> None:
+    """Call C function `fn` of `csrc/<source>.cu` with `args` and the current
+    stream of CUDA `device`, and raise if the launch failed. The device is
+    made current for the call only when it is not already."""
+    func = _bound.get((source, fn))
+    if func is None:
+        func = getattr(load(source, signatures), fn)
+        _bound[(source, fn)] = func
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = func(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = func(*args, _raw_stream(index))
+    check_launch(fn, err)

@@ -33,7 +33,14 @@ import torch
 
 from .extract import downsample2
 from .gradients import quantize_color_gradients
-from .similarity_cuda import coarse_max, coarse_scores, feature_plane_triplets, fine_scores
+from .similarity_cuda import (
+    CoarseMaxPlan,
+    coarse_max,
+    coarse_max_plan,
+    coarse_scores,
+    feature_plane_triplets,
+    fine_scores,
+)
 from .spread import feature_flat_offsets, linear_plane_shape, linearized_response_planes
 
 MAX_RESPONSE = 4
@@ -86,6 +93,14 @@ class MatchState:
     coarse_shape: tuple
     max_cells_fine: int
     max_cells_coarse: int
+    # the coarse_max kernel's plan of off3_coarse, where the prefiltered cut
+    # is configured (built with the state, never per frame)
+    coarse_plan: CoarseMaxPlan | None = None
+
+
+def takes_prefilter(cfg: MatchConfig, n: int) -> bool:
+    """Whether a bank of n (padded) templates takes the prefiltered cut."""
+    return bool(cfg.prefilter_sel) and n > max(cfg.prefilter_sel, cfg.top_k)
 
 
 def _level_offsets(feats, valids, t, rows, stride, zero_base):
@@ -129,6 +144,13 @@ def match_state_from_numpy(arrays: dict, meta: dict, device) -> MatchState:
     coarse_shape = tuple(int(v) for v in meta["coarse_shape"])
     _check_triplets(host["off3_coarse"], coarse_shape, 8 * cfg.t_coarse**2, "coarse")
     _check_triplets(host["off3_fine"], fine_shape, 8 * cfg.t_fine**2, "fine")
+    tensors = {k: torch.as_tensor(a, device=device) for k, a in host.items()}
+    plan = None
+    if takes_prefilter(cfg, host["off3_coarse"].shape[0]):
+        ch, cw, rows, stride = coarse_shape
+        plan = coarse_max_plan(
+            tensors["off3_coarse"], (8 * cfg.t_coarse**2 + 1, rows, stride), ch, cw
+        )
     return MatchState(
         cfg=cfg,
         n_templates=int(meta["n_templates"]),
@@ -136,7 +158,8 @@ def match_state_from_numpy(arrays: dict, meta: dict, device) -> MatchState:
         coarse_shape=coarse_shape,
         max_cells_fine=int(meta["max_cells_fine"]),
         max_cells_coarse=int(meta["max_cells_coarse"]),
-        **{k: torch.as_tensor(a, device=device) for k, a in host.items()},
+        coarse_plan=plan,
+        **tensors,
     )
 
 
@@ -251,13 +274,16 @@ def rank_by_sim_then_index(sim: torch.Tensor, idx: torch.Tensor, top_k: int):
 
 def _coarse_rows(state: MatchState, rows) -> MatchState:
     """The state with its coarse-level fields cut to `rows` (a slice or an
-    index tensor); the fine-level fields stay whole."""
+    index tensor); the fine-level fields stay whole. The cuts scan such
+    subsets with coarse_scores only, so the masked max's plan is dropped,
+    not cut: a coarse_max on the subset would build its own."""
     return dataclasses.replace(
         state,
         off_coarse=state.off_coarse[rows],
         nf_coarse=state.nf_coarse[rows],
         lim_coarse=state.lim_coarse[rows],
         off3_coarse=state.off3_coarse[rows],
+        coarse_plan=None,
     )
 
 
@@ -293,7 +319,9 @@ def _template_maxes(state: MatchState, coarse_planes: torch.Tensor) -> torch.Ten
     kernel gives the raw maxima; the percent scale is monotone, so scaling
     the max equals the max of the scaled similarities."""
     ch, cw = state.coarse_shape[0], state.coarse_shape[1]
-    raw = coarse_max(coarse_planes, state.off3_coarse, state.lim_coarse, ch, cw)
+    raw = coarse_max(
+        coarse_planes, state.off3_coarse, state.lim_coarse, ch, cw, plan=state.coarse_plan
+    )
     pct = raw.float() * 100.0 / (MAX_RESPONSE * state.nf_coarse.float())
     return torch.where(raw < 0, -1.0, pct)
 
@@ -383,7 +411,7 @@ def _match_with_planes(state: MatchState, fine_planes, coarse_planes) -> dict:
     cfg = state.cfg
     n = state.off_coarse.shape[0]
     cut_exact = None
-    if cfg.prefilter_sel and n > max(cfg.prefilter_sel, cfg.top_k):
+    if takes_prefilter(cfg, n):
         top_sim, cand_t, cand_gy, cand_gx, cut_exact = candidate_cut_prefilter(
             state, coarse_planes, cfg.top_k
         )

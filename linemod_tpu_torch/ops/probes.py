@@ -46,10 +46,8 @@ def _check(name, x, dtype):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _launch(fn: str, *args) -> None:
-    lib = load_library()
-    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check_launch(fn, err)
+def _launch(fn: str, device, *args) -> None:
+    cuda_lib.launch("probes", _SIGNATURES, fn, device, *args)
 
 
 # ------------------------------------------------------------ plain twins ---
@@ -86,8 +84,7 @@ def bitcast_u8_to_i32(x: torch.Tensor) -> torch.Tensor:
         return bitcast_u8_to_i32_plain(x)
     out = torch.empty((x.shape[0] // 4, x.shape[1]), dtype=torch.int32, device=x.device)
     if out.numel():
-        with torch.cuda.device(x.device):
-            _launch("bitcast_u8_to_i32", x.data_ptr(), out.shape[0], out.shape[1], out.data_ptr())
+        _launch("bitcast_u8_to_i32", x.device, x.data_ptr(), out.shape[0], out.shape[1], out.data_ptr())
         bitcast_u8_to_i32.launches += 1
     return out
 
@@ -102,8 +99,7 @@ def bitcast_i32_to_u8(w: torch.Tensor) -> torch.Tensor:
         return bitcast_i32_to_u8_plain(w)
     out = torch.empty((4 * w.shape[0], w.shape[1]), dtype=torch.uint8, device=w.device)
     if out.numel():
-        with torch.cuda.device(w.device):
-            _launch("bitcast_i32_to_u8", w.data_ptr(), w.shape[0], w.shape[1], out.data_ptr())
+        _launch("bitcast_i32_to_u8", w.device, w.data_ptr(), w.shape[0], w.shape[1], out.data_ptr())
         bitcast_i32_to_u8.launches += 1
     return out
 
@@ -119,8 +115,7 @@ def roll2d_u8(x: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
     h, w = x.shape
     out = torch.empty_like(x)
     if out.numel():
-        with torch.cuda.device(x.device):
-            _launch("roll2d_u8", x.data_ptr(), h, w, sy % h, sx % w, out.data_ptr())
+        _launch("roll2d_u8", x.device, x.data_ptr(), h, w, sy % h, sx % w, out.data_ptr())
         roll2d_u8.launches += 1
     return out
 

@@ -3,9 +3,11 @@
 
 - `coarse_scores(planes, off3, ch, cw)` -> int32 [N, ch, cw]: every template
   at every coarse grid cell.
-- `coarse_max(planes, off3, lim, ch, cw)` -> int32 [N]: each template's
-  masked max of the coarse scores over the cells where it fits, -1 where it
-  fits nowhere (phase 1 of the large-bank prefiltered cut).
+- `coarse_max(planes, off3, lim, ch, cw, plan)` -> int32 [N]: each
+  template's masked max of the coarse scores over the cells where it fits,
+  -1 where it fits nowhere (phase 1 of the large-bank prefiltered cut).
+  `coarse_max_plan` builds the kernel's per-bank plan (features sorted by
+  plane into per-chunk buckets) once per match state.
 - `fine_scores(planes, off3, cand_t, base_yx, win)` -> int32 [K, win, win]:
   each candidate's template over the window at its fine-grid origin.
 
@@ -18,6 +20,7 @@ to the wrapper's `launches` count. `ops/cuda_lib.py` builds the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -51,9 +54,10 @@ def feature_plane_triplets(feats, valids, t, zero_plane_idx):
 # ---------------------------------------------------------------- build ---
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_GEOMETRY = ctypes.c_int * 7
 _SIGNATURES = {
     "coarse_scores": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
-    "coarse_max": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "coarse_max": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _GEOMETRY, _P, _P],
     "fine_scores": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P],
 }
 
@@ -61,6 +65,10 @@ _SIGNATURES = {
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load `csrc/similarity.cu`."""
     return cuda_lib.load("similarity", _SIGNATURES)
+
+
+def _launch(fn: str, device, *args) -> None:
+    cuda_lib.launch("similarity", _SIGNATURES, fn, device, *args)
 
 
 def _check_tensor(name, x, dtype, ndim, device):
@@ -150,6 +158,121 @@ def fine_scores_plain(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
     return scores.reshape(-1, win, win)
 
 
+# ------------------------------------------------- the masked max's plan ---
+
+# the coarse_max kernel's constants (csrc/similarity.cu): shared memory per
+# chunk (kStageBytes), the cells of one warp's unit (32 rows x 8 * kItems
+# columns), units per block (kWarps * kSlots), features (u16 sums of bytes
+# <= 7)
+STAGE_BYTES = 180 * 1024
+_UNIT_ROWS, _UNIT_COLS = 32, 8 * 5
+UNITS_PER_BLOCK = 16 * 3
+_MAX_FEATURES = 8192
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CoarseMaxPlan:
+    """The coarse_max kernel's view of a bank at one plane geometry.
+
+    The kernel walks the planes in `chunks` chunks of `chunk_planes`
+    consecutive planes; of each plane it stages rows [0, stage_rows) and
+    the first 4 * pitch bytes of each row (bytes past the planes' stride
+    read as 0) into shared memory, one rectangle after the other. feat
+    [N, F] holds each template's features on planes below the trailing zero
+    plane, sorted by plane, as byte offsets into their chunk's staged
+    rectangles; chunk c's bucket is feat[t, starts[t, c]:starts[t, c + 1]].
+    Features on the trailing plane add 0 and are left out. A template's
+    cells are cut into row_bands x col_bands units of 32 rows x 40 columns,
+    one unit of warp work each."""
+
+    off3: torch.Tensor  # the triplets it was built from
+    version: int  # off3._version then
+    planes_shape: tuple  # (P + 1, rows, stride)
+    grid: tuple  # (ch, cw)
+    feat: torch.Tensor
+    starts: torch.Tensor
+    stage_rows: int
+    pitch: int  # 32-bit words a staged row; odd, so a warp's 32 rows hit 32 banks
+    chunk_planes: int
+    chunks: int
+    row_bands: int
+    col_bands: int
+
+    @property
+    def geometry(self) -> tuple:
+        """The kernel's geometry argument."""
+        return (self.planes_shape[0] - 1, self.stage_rows, self.pitch, self.chunk_planes,
+                self.chunks, self.row_bands, self.col_bands)
+
+    def staged_bytes(self) -> tuple[int, int]:
+        """(bytes one block stages, bytes all blocks stage): what the kernel
+        reads from L2 for the planes."""
+        group = (self.planes_shape[0] - 1) * self.stage_rows * 4 * self.pitch
+        units = self.feat.shape[0] * self.row_bands * self.col_bands
+        return group, group * -(-units // UNITS_PER_BLOCK)
+
+    def check(self, planes, off3, ch: int, cw: int) -> None:
+        if off3 is not self.off3 or off3._version != self.version:
+            raise ValueError("the plan was built for other triplets")
+        if tuple(planes.shape) != self.planes_shape or (ch, cw) != self.grid:
+            raise ValueError(
+                f"the plan is for planes {self.planes_shape} and grid {self.grid}, "
+                f"got {tuple(planes.shape)} and {(ch, cw)}"
+            )
+
+
+def coarse_max_plan(off3: torch.Tensor, planes_shape, ch: int, cw: int) -> CoarseMaxPlan:
+    """Build the CoarseMaxPlan of int32 [N, F, 3] triplets for planes of
+    shape planes_shape = (P + 1, rows, stride) and a ch x cw grid, on
+    off3's device. Raises ValueError where a triplet reaches outside the
+    planes or one plane's staged rectangle exceeds STAGE_BYTES."""
+    n_planes, rows, stride = (int(v) for v in planes_shape)
+    if ch * cw == 0:
+        raise ValueError("the grid is empty")
+    zero = n_planes - 1
+    o = off3.cpu().numpy().astype(np.int64)
+    n, f = o.shape[:2]
+    p, sy, sx = o[..., 0], o[..., 1], o[..., 2]
+    if o.size and (
+        p.min() < 0 or p.max() > zero or sy.min() < 0 or sx.min() < 0
+        or sy.max() + ch > rows or sx.max() + cw > stride
+    ):
+        raise ValueError(f"triplets reach outside planes {tuple(planes_shape)} on a {ch}x{cw} grid")
+    keep = p < zero
+    max_sy = int(sy[keep].max()) if keep.any() else 0
+    max_sx = int(sx[keep].max()) if keep.any() else 0
+    row_bands = -(-ch // _UNIT_ROWS)
+    col_bands = -(-cw // _UNIT_COLS)
+    stage_rows = ch + max_sy
+    # the last item, at x0, reads the 3 words from ((x0 + sx) & ~3)
+    last_x0 = col_bands * _UNIT_COLS - 8
+    pitch = (((last_x0 + max_sx) & ~3) + 12) // 4 | 1
+    rect = stage_rows * 4 * pitch
+    if rect > STAGE_BYTES:
+        raise ValueError(
+            f"one plane's staged rectangle ({stage_rows} x {4 * pitch} = {rect} B) exceeds "
+            f"the kernel's {STAGE_BYTES} B of shared memory"
+        )
+    chunks = -(-zero // (STAGE_BYTES // rect))
+    chunk_planes = -(-zero // chunks) if chunks else 1
+    chunk = np.where(keep, p // chunk_planes, chunks)
+    local = np.where(keep, (p - chunk * chunk_planes) * rect + sy * 4 * pitch + sx, 0)
+    order = np.argsort(np.where(keep, p, n_planes), axis=1, kind="stable")
+    feat = np.take_along_axis(local, order, axis=1)
+    cell = (np.arange(n)[:, None] * (chunks + 1) + chunk).reshape(-1)
+    counts = np.bincount(cell, minlength=n * (chunks + 1)).reshape(n, chunks + 1)
+    starts = np.zeros((n, chunks + 1), np.int64)
+    starts[:, 1:] = np.cumsum(counts[:, :chunks], axis=1)
+    dev = off3.device
+    return CoarseMaxPlan(
+        off3=off3, version=off3._version, planes_shape=(n_planes, rows, stride), grid=(ch, cw),
+        feat=torch.from_numpy(feat.astype(np.int32)).to(dev),
+        starts=torch.from_numpy(starts.astype(np.int32)).to(dev),
+        stage_rows=stage_rows, pitch=pitch, chunk_planes=chunk_planes, chunks=chunks,
+        row_bands=row_bands, col_bands=col_bands,
+    )
+
+
 # --------------------------------------------------------------- wrappers ---
 
 def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
@@ -168,14 +291,10 @@ def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
     out = torch.empty((n, ch, cw), dtype=torch.int32, device=planes.device)
     if out.numel() == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(planes.device):
-        err = lib.coarse_scores(
-            planes.data_ptr(), planes.shape[1], planes.shape[2],
-            off3.data_ptr(), n, f, ch, cw, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check_launch("coarse_scores", err)
+    _launch(
+        "coarse_scores", planes.device, planes.data_ptr(), planes.shape[1], planes.shape[2],
+        off3.data_ptr(), n, f, ch, cw, out.data_ptr(),
+    )
     coarse_scores.launches += 1
     return out
 
@@ -183,11 +302,16 @@ def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
 coarse_scores.launches = 0
 
 
-def coarse_max(planes, off3, lim, ch: int, cw: int) -> torch.Tensor:
+def coarse_max(planes, off3, lim, ch: int, cw: int, plan=None) -> torch.Tensor:
     """int32 [N]: each template's max coarse score over the cells where it
     fits (gy < min(lim[n, 0], ch), gx < min(lim[n, 1], cw)), -1 where none does.
 
-    planes, off3, ch, cw as for coarse_scores; lim: int32 [N, 2]."""
+    planes, off3, ch, cw as for coarse_scores; lim: int32 [N, 2]. plan: the
+    CoarseMaxPlan of off3 at this geometry (coarse_max_plan); without one, a
+    launch builds it first, which copies off3 to the host. The kernel
+    leaves out features on the trailing plane, which must be all zero (it
+    is: invalid features point there), and is exact for plane bytes up to 7
+    (responses are 0..4) and F <= 8192."""
     _check_planes(planes, off3)
     _check_tensor("lim", lim, torch.int32, 2, planes.device)
     n, f, _ = off3.shape
@@ -195,21 +319,26 @@ def coarse_max(planes, off3, lim, ch: int, cw: int) -> torch.Tensor:
         raise ValueError(f"lim must be [{n}, 2], got {tuple(lim.shape)}")
     if not (0 <= ch <= planes.shape[1] and 0 <= cw <= planes.shape[2]):
         raise ValueError(f"grid {ch}x{cw} unsupported for planes {tuple(planes.shape)}")
+    if plan is not None:
+        plan.check(planes, off3, ch, cw)
     if planes.device.type == "cpu":
         return coarse_max_plain(planes, off3, lim, ch, cw)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
-    out = torch.empty((n,), dtype=torch.int32, device=planes.device)
-    if n == 0:
+    if f > _MAX_FEATURES:
+        raise ValueError(f"coarse_max takes at most {_MAX_FEATURES} features, got {f}")
+    if planes.shape[2] % 16 or planes.data_ptr() % 16:
+        raise ValueError("coarse_max loads 16-byte words: the planes' stride and address must be multiples of 16")
+    out = torch.full((n,), -1, dtype=torch.int32, device=planes.device)
+    if n == 0 or ch * cw == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(planes.device):
-        err = lib.coarse_max(
-            planes.data_ptr(), planes.shape[1], planes.shape[2],
-            off3.data_ptr(), lim.data_ptr(), n, f, ch, cw, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check_launch("coarse_max", err)
+    if plan is None:
+        plan = coarse_max_plan(off3, tuple(planes.shape), ch, cw)
+    _launch(
+        "coarse_max", planes.device, planes.data_ptr(), planes.shape[1], planes.shape[2],
+        plan.feat.data_ptr(), plan.starts.data_ptr(), lim.data_ptr(), n, f, ch, cw,
+        _GEOMETRY(*plan.geometry), out.data_ptr(),
+    )
     coarse_max.launches += 1
     return out
 
@@ -238,15 +367,11 @@ def fine_scores(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
     out = torch.empty((k, win, win), dtype=torch.int32, device=planes.device)
     if k == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(planes.device):
-        err = lib.fine_scores(
-            planes.data_ptr(), planes.shape[1], planes.shape[2],
-            off3.data_ptr(), off3.shape[1], cand_t.data_ptr(),
-            base_yx.data_ptr(), k, win, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check_launch("fine_scores", err)
+    _launch(
+        "fine_scores", planes.device, planes.data_ptr(), planes.shape[1], planes.shape[2],
+        off3.data_ptr(), off3.shape[1], cand_t.data_ptr(), base_yx.data_ptr(), k, win,
+        out.data_ptr(),
+    )
     fine_scores.launches += 1
     return out
 

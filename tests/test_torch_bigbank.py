@@ -119,7 +119,9 @@ def test_coarse_max_plain_chunks_and_clamps(monkeypatch):
 def test_cuda_coarse_max_equals_plain():
     """The CUDA kernel against its plain version on the card, at the
     fixture's coarse plane shape with 8,192 random templates, some of whose
-    bounds fit no cell."""
+    bounds fit no cell; then planes of 4 inside the grid (every fitting cell
+    sums 256, past a byte lane) and templates whose 64 features lie on one
+    plane (one bucket holds them all)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from linemod_tpu_torch.ops import similarity_cuda as sc
@@ -138,6 +140,19 @@ def test_cuda_coarse_max_equals_plain():
     torch.cuda.synchronize()
     torch.testing.assert_close(got, sc.coarse_max_plain(planes, off3, lim, ch, cw), rtol=0, atol=0)
     assert (got[:4] == -1).all()
+
+    full = torch.zeros_like(planes)
+    full[:-1, :ch, :cw] = 4
+    flat = off3.clone()
+    flat[:, :, 1:] = 0
+    got = sc.coarse_max(full, flat, lim, ch, cw)
+    torch.testing.assert_close(got, sc.coarse_max_plain(full, flat, lim, ch, cw), rtol=0, atol=0)
+    assert int(got.max()) == 4 * f
+
+    one = off3.clone()
+    one[:, :, 0] = torch.from_numpy(rng.integers(0, p - 1, (n, 1)).astype(np.int32)).cuda()
+    got = sc.coarse_max(planes, one, lim, ch, cw)
+    torch.testing.assert_close(got, sc.coarse_max_plain(planes, one, lim, ch, cw), rtol=0, atol=0)
 
 
 def test_coarse_max_rejects_bad_inputs():
