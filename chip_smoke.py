@@ -10,16 +10,23 @@ Drives the port's paths on the card and checks them, in phases:
    reference's shipped settings (the fixture bank's 1,950 templates followed
    by 94,350 synthetic ones, seed 7) with its match state;
 2. each kernel against its plain PyTorch version on the card, exactly, with
-   CUDA-event times (median of 20) of both, the least time the card could
-   take (bound) and, where one PyTorch call computes the same function, that
-   call's time: the coarse and fine scans at the fixture's shapes and on a
-   1280x960 random frame with a 2,048-template synthetic bank; the masked
-   max at the fixture's coarse planes with the 96,300 bank (with its design
-   numbers: templates a group, chunks, staged bytes, lookups/ms) and at
-   1280x960, with templates whose bounds fit no cell, and its edge cases:
-   planes of 4 (sums of 256 and 512, past a byte lane), templates on one
-   plane, F=128, fit boxes 1-7 cells wide at every shift residue, bounds
-   beyond the grid, 0 and negative;
+   times of the kernel, its plain version and, where one PyTorch call
+   computes the same function, that call: CUDA events around 50 calls
+   queued behind a sleep, over 50 (`tools/timing.event_ms`), and
+   torch.profiler's device time a call (`tools/timing.device_ms`); with the
+   least time the card could take (bound). The coarse scan at the shapes its
+   paths give it, each with its design numbers (templates a group, split S,
+   blocks, staged bytes, lookups/ms): the fixture (2,048 templates), the
+   large-bank rescan (the 1,024 selected templates, plan cut by rows), a
+   4,096-template streaming chunk (plan cut by rows) and a 1280x960 random
+   frame with a 2,048-template synthetic bank; the fine refine at the
+   fixture and at 1280x960; the masked max at the fixture's coarse planes
+   with the 96,300 bank (with its design numbers) and at 1280x960, with
+   templates whose bounds fit no cell; the coarse scan and the masked max
+   on the edge cases: planes of 4 (sums of 256 and 512, past a byte lane),
+   templates on one plane, F=128, half the features on the zero plane, fit
+   boxes 1-7 cells wide at every shift residue, bounds beyond the grid, 0
+   and negative;
 3. the main path: the fixture (640x480, the 1,950-template bank, ICP off)
    through `detect_submit` / `detect_collect`. The quantized maps equal the
    golden's with no pixel differing, the packed [512, 5] candidates equal
@@ -35,14 +42,15 @@ Drives the port's paths on the card and checks them, in phases:
    96,300 bank, which takes the prefiltered cut. Its packed [513, 5], the
    per-template maxes, the cut's four arrays and the pose equal the JAX
    golden (tests/goldens/img0_bigbank_ref.npz), the cut is proved exact,
-   and the masked-max kernel was launched. The streaming and the dense cut
-   give the same packed candidates. A bank of identical templates forces a
-   saturated cut, which is retried on the streaming cut. Times: median
-   whole `detect` ms (20 calls) and a profile as in phase 4, one-frame ms
-   of the streaming and dense cuts;
+   and the masked-max and scan kernels were launched. The streaming and the
+   dense cut give the same packed candidates, the streaming cut with one
+   scan launch a chunk. No path builds a kernel plan per frame. A bank of
+   identical templates forces a saturated cut, which is retried on the
+   streaming cut. Times: median whole `detect` ms (20 calls) and a profile
+   as in phase 4, one-frame ms of the streaming and dense cuts;
 6. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-7. a JSON line of per-kernel results, then the result line
+7. a JSON line of per-kernel results (with `device_ms`), then the result line
    {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -70,16 +78,16 @@ GOLDEN = os.path.join(REPO, "tests", "goldens", "img0_golden.npz")
 TORCH_REF = os.path.join(REPO, "tests", "goldens", "img0_torch_ref.npz")
 BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
 REPS = 20
+# calls a kernel's time is taken over (its plain version's, where slow)
+LAUNCHES = 50
+PLAIN_LAUNCHES = 10
 SIM_ATOL = 1e-4
 # the least-time bound: device memory at 3.35 TB/s (H100 SXM data sheet,
-# 700 W), and operations at a core rate. The scans 2.1 and 2.2 keep the
-# rule of their port: one int32 add per (feature, cell) at the 67 T/s
-# float32 rate outside the tensor cores (data sheet). The masked max 2.3
-# adds 4 cells per u32 add (byte lanes), at the INT32 rate: 64 INT32 lanes
-# per SM (Hopper architecture white paper) x 132 SMs x 1,980 MHz boost
-# (data sheet) = 16.7 T adds/s.
+# 700 W), and int32 adds at the INT32 rate: 64 INT32 lanes per SM (Hopper
+# architecture white paper) x 132 SMs x 1,980 MHz boost (data sheet) =
+# 16.7 T adds/s. The coarse kernels (2.1, 2.3) add 4 cells per u32 add
+# (byte lanes), the fine refine (2.2) one int32 add per feature and cell.
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
@@ -97,7 +105,8 @@ def phase(n: int, text: str) -> None:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() in ms over `reps` runs, after a warm-up."""
+    """Median ms of one fn() call (a whole frame, host enqueue included)
+    between CUDA events, over `reps` calls after a warm-up."""
     fn()
     times = []
     for _ in range(reps):
@@ -111,16 +120,29 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def kernel_times(fn, reps: int = LAUNCHES) -> tuple:
+    """(event ms, device ms) of one fn() call, without the host's enqueue:
+    tools/timing.event_ms and device_ms over `reps` calls."""
+    from linemod_tpu_torch.tools.timing import device_ms, event_ms
+
+    return event_ms(fn, reps), device_ms(fn, reps)
+
+
+def fmt(times: tuple) -> str:
+    dev_ms = "not measured" if times[1] is None else f"{times[1]:.4f}"
+    return f"{times[0]:.4f} ms (device {dev_ms})"
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
-    """(ms, what sets it): the larger of bytes over the memory rate and
-    operations over the core rate."""
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of bytes over the memory rate and int32
+    adds over the INT32 rate."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / ops_per_s * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -170,15 +192,14 @@ def main() -> int:
     from linemod_tpu_torch.config import CameraParameters, ModelProperties, TemplateSettings
     from linemod_tpu_torch.models.template_bank import TemplateBank, concat_banks, make_synthetic_bank
     from linemod_tpu_torch.ops import cuda_lib, probes
+    from linemod_tpu_torch.ops import matching as matching_mod
     from linemod_tpu_torch.ops import similarity_cuda as sc
     from linemod_tpu_torch.ops.detect_core import detect_frame
     from linemod_tpu_torch.ops.extract import downsample2
     from linemod_tpu_torch.ops.gradients import quantize_color_gradients
     from linemod_tpu_torch.ops.matching import (
-        MatchConfig,
         _planes_3d,
         _template_maxes,
-        build_match_state,
         candidate_cut,
         candidate_cut_prefilter,
         coarse_similarity,
@@ -186,6 +207,7 @@ def main() -> int:
     from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER
     from linemod_tpu_torch.pipeline.benchmark import model_vertices, read_ground_truth_pose, score_add
     from linemod_tpu_torch.pipeline.pose_detection import PoseDetection, make_match_config, resolve_prefilter_packed
+    from linemod_tpu_torch.tools.coarse_max_split import scan_cases, synthetic_1280
     from linemod_tpu_torch.utils.png import read_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,29 +264,69 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions
     fine_p = _planes_3d(colorf, cfg.t_fine, state.max_cells_fine)
     coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, state.max_cells_coarse)
+    big_coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, big_state.max_cells_coarse)
     ch, cw = state.coarse_shape[:2]
     win = -(-2 * cfg.t_coarse // cfg.t_fine)
     _, cand_t, cgy, cgx = candidate_cut(coarse_similarity(state, coarse_p), cw, cfg.top_k)
     span = 2 * cfg.t_coarse
     base_yx = torch.stack([cgy * span // cfg.t_fine, cgx * span // cfg.t_fine], 1).int()
     cand_t = cand_t.int()
+    n, f = state.off3_coarse.shape[:2]
+    nm = big_state.off3_coarse.shape[0]
+    k = cand_t.shape[0]
+
+    big, big_color = synthetic_1280(dev)
+    big_cfg = big.cfg
+    big_fine = _planes_3d(big_color, big_cfg.t_fine, big.max_cells_fine)
+    big_coarse = _planes_3d(downsample2(big_color), big_cfg.t_coarse, big.max_cells_coarse)
+    bch, bcw = big.coarse_shape[:2]
+
+    def live_lookups(off3, planes_, cells):
+        """Lookups this run's data needs: features off the zero plane x cells."""
+        return int((off3[..., 0] < planes_.shape[0] - 1).sum().item()) * cells
+
+    # the coarse scan (2.1) at the shapes its paths give it: the main path,
+    # the large-bank rescan of the 1,024 templates the prefiltered cut
+    # selects on this frame, a streaming chunk, and 1280x960; the rescan and
+    # the chunk take the state's plan cut by rows on the card
+    scan_times, err_c = {}, 0
+    for label, (planes_s, st_s) in scan_cases(dev, state, coarse_p, big_state, big_coarse_p, big,
+                                              big_color).items():
+        sch, scw = st_s.coarse_shape[:2]
+        plan_s = st_s.coarse_plan
+        args_s = (planes_s, st_s.off3_coarse, sch, scw)
+        err_s = max_abs_err(sc.coarse_scores(*args_s, plan=plan_s), sc.coarse_scores_plain(*args_s))
+        scan_times[label] = kernel_times(lambda a=args_s, p=plan_s: sc.coarse_scores(*a, plan=p))
+        split = sc.coarse_split(plan_s, dev)
+        active = sc.active_clusters(dev, split, plan_s.scan_smem())
+        lookups = live_lookups(st_s.off3_coarse, planes_s, sch * scw)
+        phase(2, f"coarse_scores, {label}: planes {tuple(planes_s.shape)} x {tuple(st_s.off3_coarse.shape)} "
+                 f"-> [{st_s.off3_coarse.shape[0]}, {sch}, {scw}] max|kernel-plain| {err_s}; kernel "
+                 f"{fmt(scan_times[label])} ({card})")
+        groups = plan_s.groups(sc.SCAN_UNITS_PER_BLOCK)
+        print(f"  design: {sc.SCAN_UNITS_PER_BLOCK} templates of one of {plan_s.row_bands * plan_s.col_bands} "
+              f"bands a group, {groups} groups x split S {split} = {groups * split} blocks "
+              f"({active} clusters of {split} at once), {plan_s.chunks} chunks of {plan_s.chunk_planes} "
+              f"planes, {plan_s.staged_bytes(sc.SCAN_UNITS_PER_BLOCK)[1]} B staged in all, {lookups} lookups, "
+              f"{lookups / scan_times[label][0] / 1e9:.3f} G lookups/ms")
+        err_c = max(err_c, err_s)
+    check(err_c == 0, "coarse_scores kernel != plain")
+
     coarse_args = (coarse_p, state.off3_coarse, ch, cw)
     fine_args = (fine_p, state.off3_fine, cand_t, base_yx, win)
-    err_c = max_abs_err(sc.coarse_scores(*coarse_args), sc.coarse_scores_plain(*coarse_args))
     err_f = max_abs_err(sc.fine_scores(*fine_args), sc.fine_scores_plain(*fine_args))
     torch.cuda.synchronize()
     times = {
-        "coarse": (cuda_ms(lambda: sc.coarse_scores(*coarse_args)),
-                   cuda_ms(lambda: sc.coarse_scores_plain(*coarse_args))),
-        "fine": (cuda_ms(lambda: sc.fine_scores(*fine_args)),
-                 cuda_ms(lambda: sc.fine_scores_plain(*fine_args))),
+        "coarse": (next(iter(scan_times.values())),
+                   kernel_times(lambda: sc.coarse_scores_plain(*coarse_args), PLAIN_LAUNCHES)),
+        "fine": (kernel_times(lambda: sc.fine_scores(*fine_args)),
+                 kernel_times(lambda: sc.fine_scores_plain(*fine_args), PLAIN_LAUNCHES)),
     }
-    n, f = state.off3_coarse.shape[:2]
-    k = cand_t.shape[0]
     bounds = {
-        "coarse": bound(nbytes(coarse_p, state.off3_coarse) + 4 * n * ch * cw, n * f * ch * cw),
+        "coarse": bound(nbytes(coarse_p, state.off3_coarse) + 4 * n * ch * cw,
+                        live_lookups(state.off3_coarse, coarse_p, ch * cw) / 4),
         "fine": bound(nbytes(fine_p, cand_t, base_yx) + k * f * 12 + 4 * k * win * win,
-                      k * f * win * win),
+                      live_lookups(state.off3_fine[cand_t.long()], fine_p, win * win)),
     }
     # the nearest single PyTorch call: embedding_bag's sum over a materialised
     # [rows, F] index into the planes as a float column (index built untimed)
@@ -281,46 +343,33 @@ def main() -> int:
     emb = torch.nn.functional.embedding_bag
     lib_c = emb(coarse_idx, coarse_w, mode="sum").reshape(n, ch, cw)
     lib_f = emb(fine_idx, fine_w, mode="sum").reshape(k, win, win)
-    check(max_abs_err(lib_c, sc.coarse_scores(*coarse_args)) == 0, "embedding_bag != coarse kernel")
+    check(max_abs_err(lib_c, sc.coarse_scores(*coarse_args, plan=state.coarse_plan)) == 0,
+          "embedding_bag != coarse kernel")
     check(max_abs_err(lib_f, sc.fine_scores(*fine_args)) == 0, "embedding_bag != fine kernel")
     library = {
-        "coarse": cuda_ms(lambda: emb(coarse_idx, coarse_w, mode="sum")),
-        "fine": cuda_ms(lambda: emb(fine_idx, fine_w, mode="sum")),
+        "coarse": kernel_times(lambda: emb(coarse_idx, coarse_w, mode="sum"), PLAIN_LAUNCHES),
+        "fine": kernel_times(lambda: emb(fine_idx, fine_w, mode="sum")),
     }
     del coarse_idx, fine_idx, lib_c, lib_f
-    phase(2, f"fixture shapes: coarse planes {tuple(coarse_p.shape)} x {tuple(state.off3_coarse.shape)} "
-             f"-> [{n}, {ch}, {cw}] max|kernel-plain| {err_c}; "
-             f"fine planes {tuple(fine_p.shape)} x {k} candidates win {win} "
+    phase(2, f"fixture shapes: fine planes {tuple(fine_p.shape)} x {k} candidates win {win} "
              f"max|kernel-plain| {err_f}")
-    for name, (k_ms, p_ms) in times.items():
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, embedding_bag {library[name]:.4f} ms, "
-              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} (median of {REPS}, {card})")
+    for name, (k_t, p_t) in times.items():
+        print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, embedding_bag {fmt(library[name])}, "
+              f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} ({card})")
 
-    big_cfg = MatchConfig(width=1280, height=960)
-    syn_bank = make_synthetic_bank(2048, seed=7, bbox_wh=64, image_wh=(1280, 960))
-    big = build_match_state(syn_bank, big_cfg, dev)
-    rng = np.random.default_rng(7)
-    big_color = torch.from_numpy(rng.integers(0, 256, (960, 1280, 3)).astype(np.float32)).to(dev)
-    big_fine = _planes_3d(big_color, big_cfg.t_fine, big.max_cells_fine)
-    big_coarse = _planes_3d(downsample2(big_color), big_cfg.t_coarse, big.max_cells_coarse)
-    bch, bcw = big.coarse_shape[:2]
     lim = big.lim_coarse.cpu().numpy()
+    rng = np.random.default_rng(7)
     bt = rng.integers(0, big.n_templates, k)
     bgy = rng.integers(0, 1 << 20, k) % lim[bt, 0]
     bgx = rng.integers(0, 1 << 20, k) % lim[bt, 1]
     big_base = np.stack([bgy * span // big_cfg.t_fine, bgx * span // big_cfg.t_fine], 1)
     big_base = torch.from_numpy(big_base.astype(np.int32)).to(dev)
     big_t = torch.from_numpy(bt.astype(np.int32)).to(dev)
-    big_coarse_args = (big_coarse, big.off3_coarse, bch, bcw)
     big_fine_args = (big_fine, big.off3_fine, big_t, big_base, win)
-    err_bc = max_abs_err(sc.coarse_scores(*big_coarse_args), sc.coarse_scores_plain(*big_coarse_args))
     err_bf = max_abs_err(sc.fine_scores(*big_fine_args), sc.fine_scores_plain(*big_fine_args))
-    big_ms = (cuda_ms(lambda: sc.coarse_scores(*big_coarse_args)),
-              cuda_ms(lambda: sc.fine_scores(*big_fine_args)))
-    phase(2, f"1280x960 random frame, 2048 synthetic templates: coarse grid {bch}x{bcw} "
-             f"(beyond 32x128 cells: {bch > 32 or bcw > 128}) max|kernel-plain| {err_bc}, "
-             f"kernel {big_ms[0]:.4f} ms; fine max|kernel-plain| {err_bf}, kernel {big_ms[1]:.4f} ms")
-    check(err_c == 0 and err_f == 0 and err_bc == 0 and err_bf == 0, "kernel != plain")
+    phase(2, f"1280x960 random frame, fine max|kernel-plain| {err_bf}, kernel "
+             f"{fmt(kernel_times(lambda: sc.fine_scores(*big_fine_args)))}")
+    check(err_f == 0 and err_bf == 0, "fine_scores kernel != plain")
 
     # the masked max at the 96,300 bank's state and at 1280x960; some
     # templates get bounds that fit no cell, so -1 is exercised
@@ -331,39 +380,35 @@ def main() -> int:
         lim_t[rows[2], 1] = -3
         return lim_t
 
-    big_coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, big_state.max_cells_coarse)
     plan = big_state.coarse_plan
     max_lim = no_fit(big_state.lim_coarse, (5, 40000, 96299))
     max_args = (big_coarse_p, big_state.off3_coarse, max_lim, ch, cw)
     got_max = sc.coarse_max(*max_args, plan=plan)
     err_m = max_abs_err(got_max, sc.coarse_max_plain(*max_args))
     check(bool((got_max[[5, 40000, 96299]] == -1).all()), "no-fit templates must give -1")
-    max_ms = (cuda_ms(lambda: sc.coarse_max(*max_args, plan=plan)),
-              cuda_ms(lambda: sc.coarse_max_plain(*max_args)))
-    nm = big_state.off3_coarse.shape[0]
+    max_times = (kernel_times(lambda: sc.coarse_max(*max_args, plan=plan)),
+                 kernel_times(lambda: sc.coarse_max_plain(*max_args), PLAIN_LAUNCHES))
     # what this run's data needs: each template's features off the zero
     # plane, at each cell of its fit box, 4 cells per packed add
     live = (big_state.off3_coarse[..., 0] < big_coarse_p.shape[0] - 1).sum(1)
     lookups = fitting_cells(max_lim, ch, cw, live)
-    bounds["coarse_max"] = bound(nbytes(big_coarse_p, big_state.off3_coarse, max_lim) + 4 * nm,
-                                 lookups / 4, INT32_OPS_PER_S)
+    bounds["coarse_max"] = bound(nbytes(big_coarse_p, big_state.off3_coarse, max_lim) + 4 * nm, lookups / 4)
     big_max_args = (big_coarse, big.off3_coarse, no_fit(big.lim_coarse, (0, 1, 2047)), bch, bcw)
-    big_plan = sc.coarse_max_plan(big.off3_coarse, tuple(big_coarse.shape), bch, bcw)
-    err_bm = max_abs_err(sc.coarse_max(*big_max_args, plan=big_plan), sc.coarse_max_plain(*big_max_args))
-    big_max_ms = cuda_ms(lambda: sc.coarse_max(*big_max_args, plan=big_plan))
+    err_bm = max_abs_err(sc.coarse_max(*big_max_args, plan=big.coarse_plan), sc.coarse_max_plain(*big_max_args))
+    big_max_t = kernel_times(lambda: sc.coarse_max(*big_max_args, plan=big.coarse_plan))
     group, staged = plan.staged_bytes()
     phase(2, f"coarse_max: fixture coarse planes x {tuple(big_state.off3_coarse.shape)} -> [{nm}] "
-             f"max|kernel-plain| {err_m}; kernel {max_ms[0]:.4f} ms, plain {max_ms[1]:.4f} ms, "
+             f"max|kernel-plain| {err_m}; kernel {fmt(max_times[0])}, plain {fmt(max_times[1])}, "
              f"bound {bounds['coarse_max'][0]:.4f} ms by {bounds['coarse_max'][1]}; "
-             f"1280x960 x 2048 max|kernel-plain| {err_bm}, kernel {big_max_ms:.4f} ms, "
-             f"{big_plan.chunks} chunks (median of {REPS}, {card})")
-    print(f"  coarse_max design: G {sc.UNITS_PER_BLOCK // (plan.row_bands * plan.col_bands)} templates "
-          f"a group, {plan.chunks} chunks of {plan.chunk_planes} planes, staged rows {plan.stage_rows} x "
+             f"1280x960 x 2048 max|kernel-plain| {err_bm}, kernel {fmt(big_max_t)}, "
+             f"{big.coarse_plan.chunks} chunks ({card})")
+    print(f"  coarse_max design: {sc.UNITS_PER_BLOCK} templates of one of {plan.row_bands * plan.col_bands} "
+          f"bands a group, {plan.chunks} chunks of {plan.chunk_planes} planes, staged rows {plan.stage_rows} x "
           f"{4 * plan.pitch} B, {group} B staged a group, {staged} B staged in all (~ the L2 reads), "
-          f"{lookups} lookups, {lookups / max_ms[0] / 1e9:.3f} G lookups/ms")
+          f"{lookups} lookups, {lookups / max_times[0][0] / 1e9:.3f} G lookups/ms")
     check(err_m == 0 and err_bm == 0, "coarse_max kernel != plain")
 
-    # the masked max's edge cases on the fixture's coarse planes
+    # the edge cases of both coarse kernels on the fixture's coarse planes
     rng_e = np.random.default_rng(11)
     n_e, p_e = 4096, big_coarse_p.shape[0] - 1
 
@@ -380,23 +425,31 @@ def main() -> int:
     full4[:-1, :ch, :cw] = 4
     narrow_off3, narrow_lim = edge_bank(64)
     narrow_lim[4:, 1] = torch.arange(n_e - 4, device=dev, dtype=torch.int32) % 7 + 1
+    zero_off3, zero_lim = edge_bank(64)
+    zero_off3[:, ::2, 0] = p_e
+    zero_off3[7, :, 0] = p_e
     edges = {
         "planes of 4, F=64 (256)": (full4, *edge_bank(64, shifts=False)),
         "planes of 4, F=128 (512)": (full4, *edge_bank(128, shifts=False)),
         "all 64 features on one plane": (big_coarse_p, *edge_bank(64, one_plane=True)),
         "F=128": (big_coarse_p, *edge_bank(128)),
+        "half the features on the zero plane": (big_coarse_p, zero_off3, zero_lim),
         "fit-box widths 1-7, sx 0-7": (big_coarse_p, narrow_off3, narrow_lim),
     }
     for name, (planes_e, off3_e, lim_e) in edges.items():
         got_e = sc.coarse_max(planes_e, off3_e, lim_e, ch, cw)
         err_e = max_abs_err(got_e, sc.coarse_max_plain(planes_e, off3_e, lim_e, ch, cw))
         ok_e = err_e == 0 and bool((got_e[1:4] == -1).all()) and int(got_e[0]) >= 0
+        got_s = sc.coarse_scores(planes_e, off3_e, ch, cw)
+        err_s = max_abs_err(got_s, sc.coarse_scores_plain(planes_e, off3_e, ch, cw))
         if name.startswith("planes of 4"):
-            ok_e = ok_e and int(got_e.max()) == 4 * off3_e.shape[1]
-        print(f"  coarse_max edge case {name}: {n_e} templates, lim beyond/0/negative included, "
-              f"max|kernel-plain| {err_e}, max {int(got_e.max())}")
-        check(ok_e, f"coarse_max edge case {name}")
+            ok_e = ok_e and int(got_e.max()) == int(got_s.max()) == 4 * off3_e.shape[1]
+        print(f"  edge case {name}: {n_e} templates, lim beyond/0/negative included; coarse_max "
+              f"max|kernel-plain| {err_e}, max {int(got_e.max())}; coarse_scores max|kernel-plain| "
+              f"{err_s}, max {int(got_s.max())}")
+        check(ok_e and err_s == 0, f"edge case {name}")
         err_m = max(err_m, err_e)
+        err_c = max(err_c, err_s)
 
     # -- phase 3: the main path, the fixture end to end
     q0 = quantize_color_gradients(colorf)[0].cpu().numpy()
@@ -408,14 +461,25 @@ def main() -> int:
              f"level-1 pixels differ")
     check(mism0 == 0 and mism1 == 0, "the card's quantized maps differ from the golden")
 
+    # no path may build a kernel plan per frame: the plans built from here
+    # on are counted (the states built theirs in phase 1)
+    plans_built = []
+    build_plan = sc.coarse_max_plan
+
+    def counting_plan(*args, **kwargs):
+        plans_built.append(tuple(args[0].shape))
+        return build_plan(*args, **kwargs)
+
+    sc.coarse_max_plan = matching_mod.coarse_max_plan = counting_plan
     sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
     handle = det.detect_submit(color, depth)
     packed = handle[0].cpu().numpy()
     poses = det.detect_collect(handle, 1)
     launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches}
     phase(3, f"main path launches: coarse_scores {launches['coarse']}, fine_scores {launches['fine']}, "
-             f"coarse_max {sc.coarse_max.launches}")
+             f"coarse_max {sc.coarse_max.launches}; kernel plans built {len(plans_built)}")
     check(launches["coarse"] > 0 and launches["fine"] > 0, "a kernel was not launched on the main path")
+    check(not plans_built, "the main path built a kernel plan")
 
     ints_equal = np.array_equal(packed[:, [0, 1, 2, 4]], ref["packed"][:, [0, 1, 2, 4]])
     sim_err = float(np.abs(packed[:, 3] - ref["packed"][:, 3]).max())
@@ -485,6 +549,7 @@ def main() -> int:
     big_cfg5 = big_state.cfg
     check((big_cfg5.prefilter_sel, big_cfg5.scan_chunk) == (1024, 4096), f"large-bank config {big_cfg5}")
     sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    plans_built.clear()
     handle = det_big.detect_submit(color, depth)
     big_packed = handle[0].cpu().numpy()
     big_poses = det_big.detect_collect(handle, 1)
@@ -509,16 +574,26 @@ def main() -> int:
           "template maxes or cut arrays differ from the JAX golden")
     check_pose(big_poses, big_ref, "large-bank", 5)
 
-    other = {}
+    other, cut_launches = {}, {}
     for label, over in (("streaming", dict(prefilter_sel=0, scan_chunk=4096)),
                         ("dense", dict(prefilter_sel=0, scan_chunk=0))):
         st = dataclasses.replace(big_state, cfg=dataclasses.replace(big_cfg5, **over))
+        sc.coarse_scores.launches = 0
         got = detect_frame(st, frame).cpu().numpy()
+        cut_launches[label] = sc.coarse_scores.launches
         check(np.array_equal(got, big_packed[:-1]), f"the {label} cut differs from the prefiltered cut")
         other[label] = cuda_ms(lambda st=st: detect_frame(st, frame), reps=3)
+    chunk = min(big_cfg5.scan_chunk, nm)
+    while nm % chunk:  # candidate_cut_streaming's chunk: a divisor of N
+        chunk -= 1
     phase(5, f"the streaming and dense cuts give the prefiltered cut's packed [512, 5] exactly; "
+             f"coarse_scores launches a frame: streaming {cut_launches['streaming']} (chunks of {chunk}), "
+             f"dense {cut_launches['dense']}; kernel plans built on the large-bank paths {len(plans_built)}; "
              f"one frame: streaming {other['streaming']:.3f} ms, dense {other['dense']:.3f} ms "
              f"(CUDA events, median of 3; {card})")
+    check(cut_launches == {"streaming": nm // chunk, "dense": 1}, "the cuts' coarse_scores launches")
+    check(not plans_built, "a large-bank path built a kernel plan")
+    sc.coarse_max_plan = matching_mod.coarse_max_plan = build_plan
     big_med = request_times(det_big, REPS)
     phase(5, f"{REPS} large-bank detect calls: detect_frame device {big_med['device']:.3f} ms, host post "
              f"{big_med['post']:.3f} ms, whole detect {big_med['detect']:.3f} ms (medians; {card})")
@@ -562,40 +637,41 @@ def main() -> int:
               for r, (sy, sx) in zip(rolled, shifts)), "roll2d_u8 != np.roll")
     sy, sx = shifts[1]
     probe_ms = {
-        "bitcast_u8_to_i32": (cuda_ms(lambda: probes.bitcast_u8_to_i32(x)),
-                              cuda_ms(lambda: probes.bitcast_u8_to_i32_plain(x)),
-                              cuda_ms(lambda: x.view(4, 4, 256).transpose(1, 2).contiguous())),
-        "bitcast_i32_to_u8": (cuda_ms(lambda: probes.bitcast_i32_to_u8(words)),
-                              cuda_ms(lambda: probes.bitcast_i32_to_u8_plain(words)),
-                              cuda_ms(lambda: words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).contiguous())),
-        "roll2d_u8": (cuda_ms(lambda: probes.roll2d_u8(x, sy, sx)),
-                      cuda_ms(lambda: probes.roll2d_u8_plain(x, sy, sx)),
-                      cuda_ms(lambda: torch.roll(x, (sy, sx), (0, 1)))),
+        "bitcast_u8_to_i32": (kernel_times(lambda: probes.bitcast_u8_to_i32(x)),
+                              kernel_times(lambda: probes.bitcast_u8_to_i32_plain(x)),
+                              kernel_times(lambda: x.view(4, 4, 256).transpose(1, 2).contiguous())),
+        "bitcast_i32_to_u8": (kernel_times(lambda: probes.bitcast_i32_to_u8(words)),
+                              kernel_times(lambda: probes.bitcast_i32_to_u8_plain(words)),
+                              kernel_times(lambda: words.view(torch.uint8).view(4, 256, 4).transpose(1, 2)
+                                           .contiguous())),
+        "roll2d_u8": (kernel_times(lambda: probes.roll2d_u8(x, sy, sx)),
+                      kernel_times(lambda: probes.roll2d_u8_plain(x, sy, sx)),
+                      kernel_times(lambda: torch.roll(x, (sy, sx), (0, 1)))),
     }
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
     phase(6, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
-    for name, (k_ms, p_ms, l_ms) in probe_ms.items():
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms "
-              f"(median of {REPS}, {card})")
+    for name, (k_t, p_t, l_t) in probe_ms.items():
+        print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
     # -- phase 7: results
-    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms):
+    def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+                "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
+                "device_ms": k_t[1], "plain_ms": p_t[0], "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None if lib_t is None else lib_t[0]}
 
     pallas = "linemod_tpu/ops/similarity_pallas.py"
     p1_bound = bound(2 * x.numel(), 0)
     kernels = [
-        entry("coarse_scores", "similarity.cu", f"{pallas}:76", launches["coarse"], max(err_c, err_bc),
+        entry("coarse_scores", "similarity.cu", f"{pallas}:76", launches["coarse"], err_c,
               *times["coarse"], bounds["coarse"], library["coarse"]),
         entry("fine_scores", "similarity.cu", f"{pallas}:261", launches["fine"], max(err_f, err_bf),
               *times["fine"], bounds["fine"], library["fine"]),
         entry("coarse_max", "similarity.cu", f"{pallas}:159", big_launches["coarse_max"], max(err_m, err_bm),
-              *max_ms, bounds["coarse_max"], None),
+              *max_times, bounds["coarse_max"], None),
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:22",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),

@@ -4,9 +4,9 @@
 // candidates over their sub-cell windows.
 //
 // Replaces the three Pallas TPU scan kernels:
-//   coarse_scores_kernel <- coarse_scores_pallas / _make_coarse_kernel,
+//   coarse_kernel<true>  <- coarse_scores_pallas / _make_coarse_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:42-107
-//   coarse_max_kernel    <- coarse_max_pallas / _make_coarse_max_kernel,
+//   coarse_kernel<false> <- coarse_max_pallas / _make_coarse_max_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:110-216
 //   fine_scores_kernel   <- fine_scores_pallas / _fine_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:222-299
@@ -19,44 +19,24 @@
 // trailing all-zero plane. Sums are int32 and exact, so a kernel equals its
 // plain PyTorch version bit for bit.
 //
-// What bounds them on the card: at the 640x480 fixture the coarse scan
-// reads N*F*G = 2048*64*1200 ~ 157 M plane bytes and writes 9.8 MB of int32
-// scores; the fine refine reads 512*64*64 ~ 2.1 M bytes. The planes
-// (coarse 3.2 MB, fine 3.9 MB) sit in the 50 MB L2 for the whole launch, so
-// the coarse scan is bound by L2 load throughput and by how many byte loads
-// per cycle the SMs execute, not by device memory. The design, kept simple:
-//   - a block stages its templates' triplets, pre-folded into flat plane
-//     offsets, in shared memory once; every thread then reads them as
-//     broadcasts;
-//   - each thread owns one output cell, so the 32 threads of a warp read
-//     32 neighbouring bytes of one plane row per feature (one or two L2
-//     sectors) and accumulate in a register;
-//   - a coarse block scores several templates per staged table, which
-//     amortises the staging and the cell index math;
-//   - outputs are written once, cropped to the real grid, coalesced.
-// None of the TPU kernels' artifacts carry over: no 32x128-cell tile limit,
-// no rolls, no 8-sublane output blocks, no VMEM gate, no SMEM cap on the
-// templates a program takes and no padding of N. For the two scans any frame
-// whose planes fit in device memory (and in int32 offsets) works; vector
-// loads and shared-memory plane tiles are left for later work.
-//
-// The masked max (coarse_max_kernel, replacing coarse_max_pallas) does the
-// coarse scan's accumulation but writes one int32 per template instead of
-// the [ch, cw] scores: at the reference's configured 96,300-template bank
-// (96,512 padded) the dense scores would be 463 MB per frame. Its distinct
-// non-zero input is small (512 planes x 30 x 40 cells = 614 KB at the
-// 640x480 fixture), but it is looked up ~5.7 G times a frame. The first
-// port (one block per template, one global byte load per feature and cell)
-// pulled every lookup through L1 from L2: ~10.8 GB of 32-byte sectors a
-// frame, at L2 bandwidth, 23x above its bound. This design serves the
-// lookups from shared memory and reads each plane byte from L2 once per
-// group of templates:
-//   - a block of kWarps warps takes kWarps * kSlots units of work (48
-//     templates at the fixture; a unit is 32 rows x 40 columns of a
-//     template's fit box, so a 60x80 grid takes 4). It walks the planes in
-//     chunks; for each chunk it stages every plane's reachable rectangle
-//     (rows [0, ch + max_sy), 4 * pitch bytes of each row, padding bytes
-//     included) with 16-byte loads, kBatch in flight a thread;
+// The coarse scan and the masked max share one body (coarse_kernel). Their
+// input is small (the 640x480 fixture's coarse planes are 513 x 48 x 128 =
+// 3.2 MB) but looked up many times: N * F * G = 2048 * 64 * 1200 ~ 157 M
+// times a frame for the scan, ~5.7 G for the masked max over the 96,512
+// templates of the reference's configured bank. One global byte load per
+// lookup pulls every lookup through L1 from L2 (the first ports: ~0.5 GB of
+// sectors for the scan, ~10.8 GB for the masked max). The body serves the
+// lookups from shared memory instead and reads each plane byte from L2
+// once per group of templates:
+//   - a unit of work is 32 rows x 40 columns of a template's cells (a band),
+//     so a 30x40 grid is one band and a 60x80 grid four. A block of kWarps
+//     warps takes kWarps * kSlots units of one band (48 templates for the
+//     masked max, 32 for the scan; see kMaxSlots, kScanSlots). It walks
+//     the planes in chunks; for each chunk it stages every plane's
+//     rectangle that the band reaches (rows [row0, row0 + stage_rows) and
+//     4 * pitch bytes of each row from the band's first column rounded down
+//     to 16 bytes, padding bytes included) with 16-byte loads, kBatch in
+//     flight a thread;
 //   - lane l of a warp owns row l of its units, as kItems 8-cell items, and
 //     keeps their sums in registers across the chunks. The host sorts each
 //     template's features by plane into per-chunk buckets of offsets into
@@ -68,128 +48,153 @@
 //     number of words, so the 32 lanes' rows fall in 32 banks whatever the
 //     feature's shift. A byte lane holds at most 32 x 7 < 256 between
 //     flushes into u16 pairs, so plane bytes up to 7 are exact (responses
-//     are 0..4), and the u16 pairs hold F <= 8192 features of 7;
-//   - after the last chunk the cells outside the fit box are masked, the
-//     max is reduced across the warp with __reduce_max_sync and combined
-//     across a template's units with atomicMax on an output the wrapper
-//     fills with -1.
-// What bounds it now, at the fixture with the 96,512 bank: the stage, ~2 GB
-// a frame from L2 (64-byte sectors a 52-byte row, 2,011 groups), and the
-// shared-memory reads, 11 a feature for each warp, with the warps waiting
-// for the slowest at each chunk. The two do not overlap; the group size
-// that sets the stage's bytes is set by the registers the sums take.
+//     are 0..4), and the u16 pairs hold F <= 8192 features of 7.
+// The two epilogues:
+//   - masked max (2.3): the cells outside the fit box are masked, the max
+//     is reduced across the warp with __reduce_max_sync and combined across
+//     a template's units with atomicMax on an output the wrapper fills with
+//     -1. At 96,512 templates there are 2,011 groups, which fill the card.
+//   - scores (2.1): every cell is written as int32. At 1,024-4,096
+//     templates one block a group would leave most of the 132 SMs idle (64
+//     groups of 32 at the fixture's 2,048), so S blocks of a thread-block
+//     cluster share one group: block r stages and adds chunks r, r + S, ...
+//     After the last chunk each block leaves its u16 partial sums, in cell
+//     order, in its own shared memory; after cluster.sync() each block adds
+//     1/S of the 16-byte items (8 cells) across the S blocks' buffers
+//     (distributed shared memory, u16 pairs added as u32: the totals fit 16
+//     bits), unpacks them and stores them cropped to [ch, cw], two 16-byte
+//     stores an item where the row allows, a warp's lanes on consecutive
+//     items. No atomics and no memset; the bytes staged are those of a block
+//     without the split. The wrapper picks S from N, the grid, the chunks
+//     and cudaOccupancyMaxActiveClusters (at 180 KB a block the card runs
+//     66 clusters of 2 but only 39 of 3: a cluster's blocks share a GPC).
+// What bounds the body: the stage (the masked max at the fixture with the
+// 96,512 bank: ~2 GB a frame from L2, 64-byte sectors a 52-byte row, 2,011
+// groups) and the shared-memory reads, 11 a feature for each warp, with the
+// warps waiting for the slowest at each chunk. The two do not overlap; the
+// group size that sets the stage's bytes is set by the registers the sums
+// take. The scan at the fixture is short: a block's 3 chunks, its combine
+// and its stores, with one cluster round on the card.
+//
+// The fine refine reads 512 * 64 * 64 ~ 2.1 M plane bytes a frame from the
+// 3.9 MB fine planes, which sit in L2: one thread per window cell, the
+// template's offsets staged in shared memory, one byte load a feature.
 
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
 #include <cstdint>
 
-#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCoarseThreads = 256;       // cells per coarse block
-constexpr int kCoarseTemplatesPerBlock = 4;
-// coarse_max: kWarps warps a block, kSlots units a warp, kItems 8-cell
-// items a lane and unit, sums flushed from byte lanes every kFlush features
-// (at most 32: a batch's offsets are held one a lane), kStageBytes of
-// shared memory per chunk, kBatch 16-byte loads in flight a thread
-// (ops/similarity_cuda.py holds the same numbers for its plan)
+// kWarps warps a block, kItems 8-cell items a lane and
+// unit, sums flushed from byte lanes every kFlush features (at most 32: a
+// batch's offsets are held one a lane), kStageBytes of shared memory per
+// chunk, kBatch 16-byte loads in flight a thread, at most kMaxSplit blocks
+// a group (ops/similarity_cuda.py holds the same numbers for its plan)
 constexpr int kWarps = 16;
-constexpr int kSlots = 3;
+// units a warp: the masked max takes 3 (48 templates a block; the sums take
+// all 128 registers a thread may have at 512 threads), the scan 2 (32 a
+// block: 1,024-4,096 templates then make more groups to spread over the
+// SMs; measured faster at the fixture, slower for the masked max)
+constexpr int kMaxSlots = 3;
+constexpr int kScanSlots = 2;
+constexpr int kMaxUnits = kWarps * kMaxSlots;
+constexpr int kScanUnits = kWarps * kScanSlots;
 constexpr int kItems = 5;
 constexpr int kFlush = 32;
 constexpr int kStageBytes = 180 * 1024;
 constexpr int kBatch = 4;
+constexpr int kMaxSplit = 8;
+// the scan's u16 partial sums of one block: its units x 32 rows x kItems
+// items of 8 cells (16 bytes), kept in the stage's buffer after the last
+// chunk
+constexpr int kPartItems = kScanUnits * 32 * kItems;
+
+struct Geometry {
+  int n_planes, stage_rows, pitch, chunk_planes, chunks, row_bands, col_bands;
+};
 
 __device__ __forceinline__ int32_t flat_offset(const int32_t* trip, int rows,
                                                int stride) {
   return (trip[0] * rows + trip[1]) * stride + trip[2];
 }
 
-// scores[t, gy, gx] = sum_f planes[p_f, gy + sy_f, gx + sx_f]
-// grid: (ceil(n / kCoarseTemplatesPerBlock), ceil(ch * cw / kCoarseThreads))
-// dynamic shared memory: kCoarseTemplatesPerBlock * f int32
-__global__ void coarse_scores_kernel(const uint8_t* __restrict__ planes,
-                                     int rows, int stride,
-                                     const int32_t* __restrict__ off3, int n,
-                                     int f, int ch, int cw,
-                                     int32_t* __restrict__ out) {
-  extern __shared__ int32_t s_off[];
-  const int t0 = blockIdx.x * kCoarseTemplatesPerBlock;
-  const int n_t = min(kCoarseTemplatesPerBlock, n - t0);
-  for (int i = threadIdx.x; i < n_t * f; i += blockDim.x) {
-    s_off[i] = flat_offset(off3 + (static_cast<size_t>(t0) * f + i) * 3, rows,
-                           stride);
-  }
-  __syncthreads();
-
-  const int cells = ch * cw;
-  const int g = blockIdx.y * blockDim.x + threadIdx.x;
-  if (g >= cells) return;
-  const int gy = g / cw;
-  const int gx = g - gy * cw;
-  const uint8_t* base = planes + static_cast<size_t>(gy) * stride + gx;
-  for (int tt = 0; tt < n_t; ++tt) {
-    const int32_t* o = s_off + tt * f;
-    int32_t acc = 0;
-    for (int k = 0; k < f; ++k) acc += base[o[k]];
-    out[static_cast<size_t>(t0 + tt) * cells + g] = acc;
-  }
-}
-
-// One unit of coarse_max work: the cells of template t's fit box (ny x nx)
-// in rows [row0, row0 + 32) and columns [col0, col0 + 8 * kItems); lane l
-// owns row row0 + l, as kItems 8-cell items.
+// One unit of coarse work: the cells of template t in rows [row0, row0 +
+// 32) and columns [col0, col0 + 8 * kItems) (its band), cut to ny x nx (the
+// grid, or the masked max's fit box); lane l owns row row0 + l, as kItems
+// 8-cell items. t is -1 where the unit has no cell.
 struct Unit {
   int t, row0, col0, ny, nx;
 };
 
-__device__ __forceinline__ Unit unit_of(int u, const int32_t* lim, int n,
-                                        int ch, int cw, int row_bands,
-                                        int col_bands) {
-  Unit w{-1, 0, 0, 0, 0};
-  const int per_template = row_bands * col_bands;
-  if (u >= n * per_template) return w;
-  const int t = u / per_template;
-  const int band = u - t * per_template;
+// Unit j of block `group` of `units` units: the groups are band-major,
+// ceil(n / units) of them a band, and a group's units are templates of one
+// band.
+__device__ __forceinline__ Unit unit_of(int group, int j, int units,
+                                        const int32_t* lim, int n, int ch,
+                                        int cw, int col_bands) {
+  const int per_band = (n + units - 1) / units;
+  const int band = group / per_band;
+  const int t = (group - band * per_band) * units + j;
   const int rb = band / col_bands;
-  w.row0 = rb * 32;
-  w.col0 = (band - rb * col_bands) * 8 * kItems;
-  w.ny = max(0, min(lim[2 * t], ch));
-  w.nx = max(0, min(lim[2 * t + 1], cw));
+  Unit w{-1, rb * 32, (band - rb * col_bands) * 8 * kItems, 0, 0};
+  if (t >= n) return w;
+  w.ny = lim == nullptr ? ch : max(0, min(lim[2 * t], ch));
+  w.nx = lim == nullptr ? cw : max(0, min(lim[2 * t + 1], cw));
   if (w.row0 < w.ny && w.col0 < w.nx) w.t = t;
   return w;
 }
 
-// out[t] = max over gy < min(lim[t, 0], ch), gx < min(lim[t, 1], cw) of
-//          sum_f planes[p_f, gy + sy_f, gx + sx_f]; out holds -1 on entry.
+// kScores: scores[t, gy, gx] = sum_f planes[p_f, gy + sy_f, gx + sx_f] for
+//   every cell (lim unused), the group's chunks split over the `split`
+//   blocks of a cluster;
+// else: out[t] = max over gy < min(lim[t, 0], ch), gx < min(lim[t, 1], cw)
+//   of the same sums; out holds -1 on entry; split is 1.
 // feat [n, f]: template t's features on planes < n_planes, sorted by plane,
 //   as byte offsets (p - chunk's first plane) * stage_rows * 4 * pitch +
-//   sy * 4 * pitch + sx into its chunk's staged rectangles; starts
-//   [n, chunks + 1]: chunk c's bucket is feat[t, starts[t, c]:starts[t, c+1]].
-// grid: ceil(n * row_bands * col_bands / (kWarps * kSlots)); kWarps * 32
-// threads; dynamic shared memory: chunk_planes * stage_rows * pitch words.
+//   sy * 4 * pitch + sx into its chunk's staged rectangles (relative to the
+//   band's corner); starts [n, chunks + 1]: chunk c's bucket is
+//   feat[t, starts[t, c]:starts[t, c+1]].
+// grid: row_bands * col_bands * ceil(n / kUnits) * split blocks of
+// kWarps * 32 threads; dynamic shared memory: chunk_planes * stage_rows *
+// pitch words, and at least kPartItems 16-byte items for the scores.
+template <bool kScores>
 __global__ void __launch_bounds__(kWarps * 32, 1)
-    coarse_max_kernel(const uint8_t* __restrict__ planes, int rows, int stride,
-                      const int32_t* __restrict__ feat,
-                      const int32_t* __restrict__ starts,
-                      const int32_t* __restrict__ lim, int n, int f, int ch,
-                      int cw, int n_planes, int stage_rows, int pitch,
-                      int chunk_planes, int chunks, int row_bands,
-                      int col_bands, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t s_words[];
+    coarse_kernel(const uint8_t* __restrict__ planes, int rows, int stride,
+                  const int32_t* __restrict__ feat,
+                  const int32_t* __restrict__ starts,
+                  const int32_t* __restrict__ lim, int n, int f, int ch,
+                  int cw, Geometry geo, int split, int32_t* __restrict__ out) {
+  constexpr int kSlots = kScores ? kScanSlots : kMaxSlots;
+  constexpr int kUnits = kWarps * kSlots;
+  extern __shared__ __align__(16) uint32_t s_words[];
+  const int n_planes = geo.n_planes, stage_rows = geo.stage_rows,
+            pitch = geo.pitch, chunk_planes = geo.chunk_planes,
+            chunks = geo.chunks, col_bands = geo.col_bands;
   const int lane = threadIdx.x & 31;
-  const int unit0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kSlots;
+  const int warp = threadIdx.x >> 5;
+  const int group = blockIdx.x / split;
+  const int rank = blockIdx.x - group * split;
+  // the block's band: its first row, and its first column rounded down to
+  // a 16-byte load (the band's columns start 0 or 8 bytes into the stage)
+  const Unit band = unit_of(group, 0, kUnits, nullptr, n, ch, cw, col_bands);
+  const int col_start = band.col0 & ~15;
 
   // per slot: the template (-1: idle), the word offset of the lane's row
-  // in a staged rectangle, and the bounds [fb, fe) of the next bucket
-  int tmpl[kSlots], base[kSlots], fb[kSlots], fe[kSlots];
+  // in a staged rectangle, and the bounds fb | fe << 16 of the next bucket
+  int tmpl[kSlots], base[kSlots], bounds[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const Unit w = unit_of(unit0 + s, lim, n, ch, cw, row_bands, col_bands);
+    const Unit w =
+        unit_of(group, warp * kSlots + s, kUnits, lim, n, ch, cw, col_bands);
     tmpl[s] = w.t;
-    base[s] = w.row0 + lane < w.ny ? (w.row0 + lane) * pitch + w.col0 / 4 : 0;
+    base[s] = w.row0 + lane < w.ny ? lane * pitch + (w.col0 - col_start) / 4 : 0;
     const int32_t* st = starts + static_cast<size_t>(max(w.t, 0)) * (chunks + 1);
-    fb[s] = st[0];
-    fe[s] = chunks > 0 ? st[1] : 0;
+    bounds[s] = rank < chunks ? st[rank] | st[rank + 1] << 16 : 0;
   }
   // u16 pairs: acc[s][k][v][0] holds cells 4v and 4v + 2 of item k,
   // acc[s][k][v][1] cells 4v + 1 and 4v + 3
@@ -202,17 +207,19 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   const int mover = threadIdx.x / row_units;
   const int col = (threadIdx.x - mover * row_units) << 4;
   const int step_p = movers / stage_rows, step_r = movers - step_p * stage_rows;
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = rank; c < chunks; c += split) {
     const int p0 = c * chunk_planes;
     const int plane_rows = min(chunk_planes, n_planes - p0) * stage_rows;
     // the bucket's first 32 features, and the next bucket's bounds, are
     // loaded before the stage so that their latency hides behind it
-    int mine[kSlots], next_fe[kSlots];
+    int mine[kSlots], next[kSlots];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const size_t t = max(tmpl[s], 0);
-      mine[s] = fb[s] + lane < fe[s] ? feat[t * f + fb[s] + lane] : 0;
-      next_fe[s] = c + 2 <= chunks ? starts[t * (chunks + 1) + c + 2] : 0;
+      const int fb = bounds[s] & 0xFFFF, fe = bounds[s] >> 16;
+      mine[s] = fb + lane < fe ? feat[t * f + fb + lane] : 0;
+      const int32_t* st = starts + t * (chunks + 1) + c + split;
+      next[s] = c + split < chunks ? st[0] | st[1] << 16 : 0;
     }
     __syncthreads();  // every warp is done with the previous chunk
     if (mover < movers) {
@@ -222,10 +229,12 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           v[u] = make_uint4(0, 0, 0, 0);
-          if (pr + u * movers < plane_rows && col < stride) {
+          if (pr + u * movers < plane_rows && band.row0 + r < rows &&
+              col_start + col < stride) {
             v[u] = __ldg(reinterpret_cast<const uint4*>(
-                planes + (static_cast<size_t>(p0 + p) * rows + r) * stride +
-                col));
+                planes +
+                (static_cast<size_t>(p0 + p) * rows + band.row0 + r) * stride +
+                col_start + col));
           }
           p += step_p;
           r += step_r;
@@ -252,10 +261,12 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     for (int s = 0; s < kSlots; ++s) {
       if (tmpl[s] < 0) continue;  // warp-uniform
       const int32_t* ft = feat + static_cast<size_t>(tmpl[s]) * f;
-      for (int b = fb[s]; b < fe[s]; b += kFlush) {
-        const int nb = min(kFlush, fe[s] - b);
-        const int batch = b == fb[s] ? mine[s] : (lane < nb ? ft[b + lane] : 0);
+      const int fb = bounds[s] & 0xFFFF, fe = bounds[s] >> 16;
+      for (int b = fb; b < fe; b += kFlush) {
+        const int nb = min(kFlush, fe - b);
+        const int batch = b == fb ? mine[s] : (lane < nb ? ft[b + lane] : 0);
         uint32_t a8[kItems][2] = {};
+#pragma unroll 4
         for (int q = 0; q < nb; ++q) {
           const int off = __shfl_sync(0xffffffffu, batch, q);
           const uint32_t* w = s_words + base[s] + (off >> 2);
@@ -276,32 +287,93 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
           }
         }
       }
-      fb[s] = fe[s];
-      fe[s] = next_fe[s];
+      bounds[s] = next[s];
     }
   }
 
+  if constexpr (kScores) {
+    // this block's partial sums, as u16 pairs in cell order: item
+    // (unit * 32 + row) * kItems + k is 4 words, the pairs of cells
+    // (0, 1), (2, 3), (4, 5), (6, 7) of the row's item k; one 16-byte
+    // store a lane (a lane stride of 80 bytes: no bank conflict)
+    __syncthreads();  // every warp is done with the last chunk's stage
+    uint4* part = reinterpret_cast<uint4*>(s_words);
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const Unit w = unit_of(unit0 + s, lim, n, ch, cw, row_bands, col_bands);
-    if (w.t < 0) continue;  // warp-uniform
-    int32_t best = -1;
-    if (w.row0 + lane < w.ny) {
+    for (int s = 0; s < kSlots; ++s) {
 #pragma unroll
       for (int k = 0; k < kItems; ++k) {
+        const uint32_t(&a)[2][2] = acc[s][k];
+        part[((warp * kSlots + s) * 32 + lane) * kItems + k] =
+            make_uint4(__byte_perm(a[0][0], a[0][1], 0x5410),
+                       __byte_perm(a[0][0], a[0][1], 0x7632),
+                       __byte_perm(a[1][0], a[1][1], 0x5410),
+                       __byte_perm(a[1][0], a[1][1], 0x7632));
+      }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    // block `rank` takes its 1/split of the items, adds them across the
+    // blocks' buffers (u16 pairs added as u32: the totals fit 16 bits) and
+    // writes their 8 cells cropped to the grid; a warp's lanes take
+    // consecutive items, which are consecutive cells of a row
+    const int end = (rank + 1) * kPartItems / split;
+    for (int e = rank * kPartItems / split + threadIdx.x; e < end;
+         e += blockDim.x) {
+      const int j = e / (32 * kItems);
+      const int row = (e - j * 32 * kItems) / kItems;
+      const int k = e - (j * 32 + row) * kItems;
+      const Unit w = unit_of(group, j, kUnits, nullptr, n, ch, cw, col_bands);
+      const int gy = w.row0 + row, gx = w.col0 + 8 * k;
+      if (w.t < 0 || gy >= ch || gx >= cw) continue;
+      uint4 sum = make_uint4(0, 0, 0, 0);
+      for (int r = 0; r < split; ++r) {
+        const uint4 v = *cluster.map_shared_rank(part + e, r);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      const int32_t c[8] = {
+          static_cast<int32_t>(sum.x & 0xFFFFu), static_cast<int32_t>(sum.x >> 16),
+          static_cast<int32_t>(sum.y & 0xFFFFu), static_cast<int32_t>(sum.y >> 16),
+          static_cast<int32_t>(sum.z & 0xFFFFu), static_cast<int32_t>(sum.z >> 16),
+          static_cast<int32_t>(sum.w & 0xFFFFu), static_cast<int32_t>(sum.w >> 16)};
+      int32_t* o = out + (static_cast<size_t>(w.t) * ch + gy) * cw + gx;
+      if ((cw & 3) == 0 && gx + 8 <= cw) {  // o is 16-byte aligned
+        reinterpret_cast<int4*>(o)[0] = make_int4(c[0], c[1], c[2], c[3]);
+        reinterpret_cast<int4*>(o)[1] = make_int4(c[4], c[5], c[6], c[7]);
+      } else {
 #pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const uint32_t lo = acc[s][k][v][0], hi = acc[s][k][v][1];
-          const int gx = w.col0 + 8 * k + 4 * v;
-          if (gx < w.nx) best = max(best, static_cast<int32_t>(lo & 0xFFFFu));
-          if (gx + 1 < w.nx) best = max(best, static_cast<int32_t>(hi & 0xFFFFu));
-          if (gx + 2 < w.nx) best = max(best, static_cast<int32_t>(lo >> 16));
-          if (gx + 3 < w.nx) best = max(best, static_cast<int32_t>(hi >> 16));
+        for (int m = 0; m < 8; ++m) {
+          if (gx + m < cw) o[m] = c[m];
         }
       }
     }
-    best = __reduce_max_sync(0xffffffffu, best);
-    if (lane == 0) atomicMax(out + w.t, best);
+    cluster.sync();  // no block leaves while the others read its buffer
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const Unit w =
+          unit_of(group, warp * kSlots + s, kUnits, lim, n, ch, cw, col_bands);
+      if (w.t < 0) continue;  // warp-uniform
+      int32_t best = -1;
+      if (w.row0 + lane < w.ny) {
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const uint32_t lo = acc[s][k][v][0], hi = acc[s][k][v][1];
+            const int gx = w.col0 + 8 * k + 4 * v;
+            if (gx < w.nx) best = max(best, static_cast<int32_t>(lo & 0xFFFFu));
+            if (gx + 1 < w.nx) best = max(best, static_cast<int32_t>(hi & 0xFFFFu));
+            if (gx + 2 < w.nx) best = max(best, static_cast<int32_t>(lo >> 16));
+            if (gx + 3 < w.nx) best = max(best, static_cast<int32_t>(hi >> 16));
+          }
+        }
+      }
+      best = __reduce_max_sync(0xffffffffu, best);
+      if (lane == 0) atomicMax(out + w.t, best);
+    }
   }
 }
 
@@ -333,57 +405,113 @@ __global__ void fine_scores_kernel(const uint8_t* __restrict__ planes,
   out[static_cast<size_t>(k) * win * win + threadIdx.x] = acc;
 }
 
+// The geometry from the wrapper's plan, its dynamic shared memory in bytes,
+// or 0 for a geometry the kernel's constants do not cover.
+size_t coarse_smem(const int* g, int rows, int stride, int ch, int cw, int f,
+                   const void* planes, bool scores) {
+  const Geometry geo{g[0], g[1], g[2], g[3], g[4], g[5], g[6]};
+  const size_t buf = sizeof(uint32_t) * static_cast<size_t>(geo.chunk_planes) *
+                     geo.stage_rows * geo.pitch;
+  if (geo.stage_rows > rows || buf > kStageBytes || 32 * geo.row_bands < ch ||
+      8 * kItems * geo.col_bands < cw ||
+      geo.chunks * geo.chunk_planes < geo.n_planes || f > 8192 || stride % 16 ||
+      reinterpret_cast<uintptr_t>(planes) % 16) {
+    return 0;
+  }
+  return scores ? std::max(buf, sizeof(uint4) * kPartItems) : buf;
+}
+
+cudaLaunchConfig_t scores_config(int blocks, size_t smem, int split,
+                                 cudaLaunchAttribute* attr, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes). Each launches on the given stream,
-// does not synchronise, and returns cudaGetLastError() (0 = launched).
+// does not synchronise, and returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a geometry the kernel's constants do not cover.
+// geometry: {n_planes, stage_rows, pitch, chunk_planes, chunks, row_bands,
+// col_bands}, from the wrapper's plan.
 
+// out: int32 [n, ch, cw]; split: blocks a group, 1..kMaxSplit (a cluster).
 extern "C" int coarse_scores(const void* planes, int rows, int stride,
-                             const void* off3, int n, int f, int ch, int cw,
-                             void* out, void* stream) {
-  const int cells = ch * cw;
-  const dim3 grid((n + kCoarseTemplatesPerBlock - 1) / kCoarseTemplatesPerBlock,
-                  (cells + kCoarseThreads - 1) / kCoarseThreads);
-  const size_t smem = sizeof(int32_t) * kCoarseTemplatesPerBlock * f;
-  coarse_scores_kernel<<<grid, kCoarseThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), rows, stride,
-      static_cast<const int32_t*>(off3), n, f, ch, cw,
-      static_cast<int32_t*>(out));
+                             const void* feat, const void* starts, int n,
+                             int f, int ch, int cw, const int* geometry,
+                             int split, void* out, void* stream) {
+  const size_t smem =
+      coarse_smem(geometry, rows, stride, ch, cw, f, planes, true);
+  if (smem == 0 || split < 1 || split > kMaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int groups =
+      geometry[5] * geometry[6] * ((n + kScanUnits - 1) / kScanUnits);
+  if (groups == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaFuncSetAttribute(
+      coarse_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      scores_config(groups * split, smem, split, &attr, stream);
+  const Geometry geo{geometry[0], geometry[1], geometry[2], geometry[3],
+                     geometry[4], geometry[5], geometry[6]};
+  err = cudaLaunchKernelEx(&cfg, coarse_kernel<true>,
+                           static_cast<const uint8_t*>(planes), rows, stride,
+                           static_cast<const int32_t*>(feat),
+                           static_cast<const int32_t*>(starts),
+                           static_cast<const int32_t*>(nullptr), n, f, ch, cw,
+                           geo, split, static_cast<int32_t*>(out));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// geometry: {n_planes, stage_rows, pitch, chunk_planes, chunks, row_bands,
-// col_bands}, from the wrapper's plan; out must hold -1. Returns
-// cudaErrorInvalidValue for a geometry the kernel's constants do not cover.
+// *active: how many clusters of `split` blocks of the scan, each with
+// `smem` bytes of dynamic shared memory, the card runs at once
+// (cudaOccupancyMaxActiveClusters).
+extern "C" int coarse_scores_clusters(int split, int smem, int* active) {
+  cudaError_t err = cudaFuncSetAttribute(
+      coarse_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = scores_config(split, smem, split, &attr, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      active, coarse_kernel<true>, &cfg));
+}
+
+// out: int32 [n], holding -1 on entry.
 extern "C" int coarse_max(const void* planes, int rows, int stride,
                           const void* feat, const void* starts,
                           const void* lim, int n, int f, int ch, int cw,
                           const int* geometry, void* out, void* stream) {
-  const int n_planes = geometry[0], stage_rows = geometry[1],
-            pitch = geometry[2], chunk_planes = geometry[3],
-            chunks = geometry[4], row_bands = geometry[5],
-            col_bands = geometry[6];
-  const size_t buf =
-      sizeof(uint32_t) * static_cast<size_t>(chunk_planes) * stage_rows * pitch;
-  if (stage_rows > rows || buf > kStageBytes || 32 * row_bands < ch ||
-      8 * kItems * col_bands < cw || chunks * chunk_planes < n_planes ||
-      f > 8192 || stride % 16 || reinterpret_cast<uintptr_t>(planes) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int blocks = (n * row_bands * col_bands + kWarps * kSlots - 1) /
-                     (kWarps * kSlots);
+  const size_t smem =
+      coarse_smem(geometry, rows, stride, ch, cw, f, planes, false);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks =
+      geometry[5] * geometry[6] * ((n + kMaxUnits - 1) / kMaxUnits);
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   cudaError_t err = cudaFuncSetAttribute(
-      coarse_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(buf));
+      coarse_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  coarse_max_kernel<<<blocks, kWarps * 32, buf,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const Geometry geo{geometry[0], geometry[1], geometry[2], geometry[3],
+                     geometry[4], geometry[5], geometry[6]};
+  coarse_kernel<false><<<blocks, kWarps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), rows, stride,
       static_cast<const int32_t*>(feat), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(lim), n, f, ch, cw, n_planes, stage_rows,
-      pitch, chunk_planes, chunks, row_bands, col_bands,
+      static_cast<const int32_t*>(lim), n, f, ch, cw, geo, 1,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,9 @@
 
 - the whole bank is scored at the coarse level (half resolution, T=8
   spreading): every template at every coarse grid cell, by the
-  `coarse_scores` kernel;
+  `coarse_scores` kernel, with the state's plan (`MatchState.coarse_plan`,
+  built once with the state; the cuts' template subsets cut it on the
+  device);
 - an exact top-K of (template, cell) candidates, in the canonical order
   (similarity descending, then flat template*G + cell index ascending),
   by one of three cuts that give the same candidates:
@@ -93,9 +95,9 @@ class MatchState:
     coarse_shape: tuple
     max_cells_fine: int
     max_cells_coarse: int
-    # the coarse_max kernel's plan of off3_coarse, where the prefiltered cut
-    # is configured (built with the state, never per frame)
-    coarse_plan: CoarseMaxPlan | None = None
+    # the coarse kernel's plan of off3_coarse (built with the state, never
+    # per frame; _coarse_rows cuts it with the triplets)
+    coarse_plan: CoarseMaxPlan
 
 
 def takes_prefilter(cfg: MatchConfig, n: int) -> bool:
@@ -145,12 +147,8 @@ def match_state_from_numpy(arrays: dict, meta: dict, device) -> MatchState:
     _check_triplets(host["off3_coarse"], coarse_shape, 8 * cfg.t_coarse**2, "coarse")
     _check_triplets(host["off3_fine"], fine_shape, 8 * cfg.t_fine**2, "fine")
     tensors = {k: torch.as_tensor(a, device=device) for k, a in host.items()}
-    plan = None
-    if takes_prefilter(cfg, host["off3_coarse"].shape[0]):
-        ch, cw, rows, stride = coarse_shape
-        plan = coarse_max_plan(
-            tensors["off3_coarse"], (8 * cfg.t_coarse**2 + 1, rows, stride), ch, cw
-        )
+    ch, cw, rows, stride = coarse_shape
+    plan = coarse_max_plan(tensors["off3_coarse"], (8 * cfg.t_coarse**2 + 1, rows, stride), ch, cw)
     return MatchState(
         cfg=cfg,
         n_templates=int(meta["n_templates"]),
@@ -241,7 +239,9 @@ def coarse_similarity(state: MatchState, coarse_planes: torch.Tensor) -> torch.T
     """[N, G] float32 percent similarity of every template at every coarse
     cell, -1 where the template does not fit the image at that cell."""
     ch, cw = state.coarse_shape[0], state.coarse_shape[1]
-    scores = coarse_scores(coarse_planes, state.off3_coarse, ch, cw).reshape(-1, ch * cw)
+    scores = coarse_scores(
+        coarse_planes, state.off3_coarse, ch, cw, plan=state.coarse_plan
+    ).reshape(-1, ch * cw)
     dev = scores.device
     gy = torch.arange(ch, dtype=torch.int32, device=dev).repeat_interleave(cw)
     gx = torch.arange(cw, dtype=torch.int32, device=dev).repeat(ch)
@@ -274,16 +274,17 @@ def rank_by_sim_then_index(sim: torch.Tensor, idx: torch.Tensor, top_k: int):
 
 def _coarse_rows(state: MatchState, rows) -> MatchState:
     """The state with its coarse-level fields cut to `rows` (a slice or an
-    index tensor); the fine-level fields stay whole. The cuts scan such
-    subsets with coarse_scores only, so the masked max's plan is dropped,
-    not cut: a coarse_max on the subset would build its own."""
+    index tensor on the state's device); the fine-level fields stay whole.
+    The plan is cut with the triplets, on the device (the rescan and the
+    streaming chunks build none per frame)."""
+    off3 = state.off3_coarse[rows]
     return dataclasses.replace(
         state,
         off_coarse=state.off_coarse[rows],
         nf_coarse=state.nf_coarse[rows],
         lim_coarse=state.lim_coarse[rows],
-        off3_coarse=state.off3_coarse[rows],
-        coarse_plan=None,
+        off3_coarse=off3,
+        coarse_plan=state.coarse_plan.take_rows(rows, off3),
     )
 
 

@@ -1,13 +1,15 @@
 """Similarity scans: the CUDA kernels' wrappers and their plain PyTorch twins
 (counterpart of `linemod_tpu/ops/similarity_pallas.py`).
 
-- `coarse_scores(planes, off3, ch, cw)` -> int32 [N, ch, cw]: every template
-  at every coarse grid cell.
+- `coarse_scores(planes, off3, ch, cw, plan)` -> int32 [N, ch, cw]: every
+  template at every coarse grid cell.
 - `coarse_max(planes, off3, lim, ch, cw, plan)` -> int32 [N]: each
   template's masked max of the coarse scores over the cells where it fits,
   -1 where it fits nowhere (phase 1 of the large-bank prefiltered cut).
-  `coarse_max_plan` builds the kernel's per-bank plan (features sorted by
-  plane into per-chunk buckets) once per match state.
+  The two share one kernel body and one plan: `coarse_max_plan` builds it
+  (features sorted by plane into per-chunk buckets) once per match state,
+  and `CoarseMaxPlan.take_rows` cuts it to a subset of the templates on the
+  device.
 - `fine_scores(planes, off3, cand_t, base_yx, win)` -> int32 [K, win, win]:
   each candidate's template over the window at its fine-grid origin.
 
@@ -32,7 +34,6 @@ _INDEX_BYTES = 64 * 1024 * 1024
 # templates per chunk of coarse_max_plain's masked max
 _MAX_CHUNK = 4096
 _INT32_MAX = 2**31 - 1
-_MAX_COARSE_CELLS = 65535 * 256  # grid.y limit x cells per coarse block
 
 
 def feature_plane_triplets(feats, valids, t, zero_plane_idx):
@@ -56,7 +57,8 @@ def feature_plane_triplets(feats, valids, t, zero_plane_idx):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = ctypes.c_int * 7
 _SIGNATURES = {
-    "coarse_scores": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "coarse_scores": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _GEOMETRY, _I, _P, _P],
+    "coarse_scores_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "coarse_max": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _GEOMETRY, _P, _P],
     "fine_scores": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P],
 }
@@ -158,32 +160,41 @@ def fine_scores_plain(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
     return scores.reshape(-1, win, win)
 
 
-# ------------------------------------------------- the masked max's plan ---
+# ------------------------------------------------ the coarse kernels' plan ---
 
-# the coarse_max kernel's constants (csrc/similarity.cu): shared memory per
+# the coarse kernel's constants (csrc/similarity.cu): shared memory per
 # chunk (kStageBytes), the cells of one warp's unit (32 rows x 8 * kItems
-# columns), units per block (kWarps * kSlots), features (u16 sums of bytes
-# <= 7)
+# columns), units per block of the masked max and of the scan (kMaxUnits,
+# kScanUnits), features (u16 sums of bytes <= 7), blocks sharing a group in
+# the scan (kMaxSplit), the scan's partial sums a block (kPartItems, as
+# bytes)
 STAGE_BYTES = 180 * 1024
 _UNIT_ROWS, _UNIT_COLS = 32, 8 * 5
 UNITS_PER_BLOCK = 16 * 3
+SCAN_UNITS_PER_BLOCK = 16 * 2
 _MAX_FEATURES = 8192
+MAX_SPLIT = 8
+_PARTIAL_BYTES = SCAN_UNITS_PER_BLOCK * _UNIT_ROWS * _UNIT_COLS * 2
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CoarseMaxPlan:
-    """The coarse_max kernel's view of a bank at one plane geometry.
+    """The coarse kernel's view of a bank at one plane geometry (the scan
+    and the masked max take the same plan).
 
-    The kernel walks the planes in `chunks` chunks of `chunk_planes`
-    consecutive planes; of each plane it stages rows [0, stage_rows) and
-    the first 4 * pitch bytes of each row (bytes past the planes' stride
-    read as 0) into shared memory, one rectangle after the other. feat
-    [N, F] holds each template's features on planes below the trailing zero
-    plane, sorted by plane, as byte offsets into their chunk's staged
-    rectangles; chunk c's bucket is feat[t, starts[t, c]:starts[t, c + 1]].
-    Features on the trailing plane add 0 and are left out. A template's
-    cells are cut into row_bands x col_bands units of 32 rows x 40 columns,
-    one unit of warp work each."""
+    A template's cells are cut into row_bands x col_bands bands of 32 rows
+    x 40 columns, one unit of warp work each; a block takes UNITS_PER_BLOCK
+    (the masked max) or SCAN_UNITS_PER_BLOCK (the scan) templates of one
+    band (the groups are band-major). The kernel walks the
+    planes in `chunks` chunks of `chunk_planes` consecutive planes; of each
+    plane it stages the rectangle its band reaches, rows [row0, row0 +
+    stage_rows) and 4 * pitch bytes of each row from the band's first column
+    rounded down to 16 bytes (bytes past the planes read as 0), into shared
+    memory, one rectangle after the other. feat [N, F] holds each template's
+    features on planes below the trailing zero plane, sorted by plane, as
+    byte offsets into their chunk's staged rectangles, relative to the
+    band's corner; chunk c's bucket is feat[t, starts[t, c]:starts[t, c + 1]].
+    Features on the trailing plane add 0 and are left out."""
 
     off3: torch.Tensor  # the triplets it was built from
     version: int  # off3._version then
@@ -204,12 +215,31 @@ class CoarseMaxPlan:
         return (self.planes_shape[0] - 1, self.stage_rows, self.pitch, self.chunk_planes,
                 self.chunks, self.row_bands, self.col_bands)
 
-    def staged_bytes(self) -> tuple[int, int]:
-        """(bytes one block stages, bytes all blocks stage): what the kernel
-        reads from L2 for the planes."""
+    def groups(self, units: int = UNITS_PER_BLOCK) -> int:
+        """Groups of `units` templates of one band: the masked max's blocks
+        (the scan's with SCAN_UNITS_PER_BLOCK, before its split)."""
+        return self.row_bands * self.col_bands * -(-self.feat.shape[0] // units)
+
+    def staged_bytes(self, units: int = UNITS_PER_BLOCK) -> tuple[int, int]:
+        """(bytes one group stages, bytes all groups stage): what the kernel
+        reads from L2 for the planes, whatever the scan's split."""
         group = (self.planes_shape[0] - 1) * self.stage_rows * 4 * self.pitch
-        units = self.feat.shape[0] * self.row_bands * self.col_bands
-        return group, group * -(-units // UNITS_PER_BLOCK)
+        return group, group * self.groups(units)
+
+    def scan_smem(self) -> int:
+        """The scan's dynamic shared memory a block: the stage, or the
+        partial sums where they are larger."""
+        return max(4 * self.chunk_planes * self.stage_rows * self.pitch, _PARTIAL_BYTES)
+
+    def take_rows(self, rows, off3: torch.Tensor) -> "CoarseMaxPlan":
+        """The plan of the templates `rows` (a slice or an index tensor on the
+        plan's device), whose triplets are off3 (= the bank's off3[rows]).
+        The bank's geometry covers every subset, so this is feat[rows] and
+        starts[rows], cut on the device: no copy to the host, no sync."""
+        feat, starts = self.feat[rows], self.starts[rows]
+        if off3.shape[:2] != feat.shape:
+            raise ValueError(f"off3 {tuple(off3.shape)} is not the plan's rows {tuple(feat.shape)}")
+        return dataclasses.replace(self, off3=off3, version=off3._version, feat=feat, starts=starts)
 
     def check(self, planes, off3, ch: int, cw: int) -> None:
         if off3 is not self.off3 or off3._version != self.version:
@@ -243,9 +273,10 @@ def coarse_max_plan(off3: torch.Tensor, planes_shape, ch: int, cw: int) -> Coars
     max_sx = int(sx[keep].max()) if keep.any() else 0
     row_bands = -(-ch // _UNIT_ROWS)
     col_bands = -(-cw // _UNIT_COLS)
-    stage_rows = ch + max_sy
-    # the last item, at x0, reads the 3 words from ((x0 + sx) & ~3)
-    last_x0 = col_bands * _UNIT_COLS - 8
+    stage_rows = min(ch, _UNIT_ROWS) + max_sy
+    # a band's columns start 0 or 8 bytes into its stage (40 * b rounded
+    # down to 16); its last item, at x0, reads 3 words from ((x0 + sx) & ~3)
+    last_x0 = (8 if col_bands > 1 else 0) + _UNIT_COLS - 8
     pitch = (((last_x0 + max_sx) & ~3) + 12) // 4 | 1
     rect = stage_rows * 4 * pitch
     if rect > STAGE_BYTES:
@@ -275,25 +306,76 @@ def coarse_max_plan(off3: torch.Tensor, planes_shape, ch: int, cw: int) -> Coars
 
 # --------------------------------------------------------------- wrappers ---
 
-def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
+_active_clusters: dict[tuple, int] = {}
+
+
+def active_clusters(device, split: int, smem: int) -> int:
+    """Clusters of `split` scan blocks with `smem` bytes of shared memory each
+    that the card runs at once (cudaOccupancyMaxActiveClusters), cached."""
+    key = (device.index, split, smem)
+    if key not in _active_clusters:
+        active = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = load_library().coarse_scores_clusters(split, smem, ctypes.byref(active))
+        cuda_lib.check_launch("coarse_scores_clusters", err)
+        _active_clusters[key] = active.value
+    return _active_clusters[key]
+
+
+_splits: dict[tuple, int] = {}
+
+
+def coarse_split(plan: CoarseMaxPlan, device) -> int:
+    """Blocks a group of the scan: the S <= MAX_SPLIT that needs the fewest
+    rounds of resident clusters times chunks a block; on a tie the fewest
+    rounds (each round pays its own combine), then the largest S (each block
+    combines 1/S of the cells). At 2,048 templates (64 groups) S = 1 would
+    leave half the 132 SMs idle. Cached by the numbers it reads."""
+    groups, smem = plan.groups(SCAN_UNITS_PER_BLOCK), plan.scan_smem()
+    key = (device.index, groups, plan.chunks, smem)
+    if key not in _splits:
+        costs = {}
+        for s in range(1, min(MAX_SPLIT, max(plan.chunks, 1)) + 1):
+            active = active_clusters(device, s, smem)
+            if active:
+                rounds = -(-groups // active)
+                costs[s] = (rounds * -(-plan.chunks // s), rounds, -s)
+        _splits[key] = min(costs, key=costs.get, default=1)
+    return _splits[key]
+
+
+def coarse_scores(planes, off3, ch: int, cw: int, plan=None) -> torch.Tensor:
     """int32 [N, ch, cw] coarse scores of every template at every cell.
 
     planes: uint8 [P+1, rows, stride]; off3: int32 [N, F, 3] (plane, sy, sx)
-    with sy + ch <= rows and sx + cw <= stride for every feature."""
+    with sy + ch <= rows and sx + cw <= stride for every feature. plan: the
+    CoarseMaxPlan of off3 at this geometry (the match state's, or one cut
+    from it by take_rows); without one, a launch builds it first, which
+    copies off3 to the host. The kernel leaves out features on the trailing
+    plane, which must be all zero (it is: invalid features point there), and
+    is exact for plane bytes up to 7 (responses are 0..4) and F <= 8192.
+    Raises ValueError where one plane's staged rectangle exceeds
+    STAGE_BYTES (coarse_max_plan)."""
     _check_planes(planes, off3)
-    if ch > planes.shape[1] or cw > planes.shape[2] or ch * cw > _MAX_COARSE_CELLS:
+    if not (0 <= ch <= planes.shape[1] and 0 <= cw <= planes.shape[2]):
         raise ValueError(f"grid {ch}x{cw} unsupported for planes {tuple(planes.shape)}")
+    if plan is not None:
+        plan.check(planes, off3, ch, cw)
     if planes.device.type == "cpu":
         return coarse_scores_plain(planes, off3, ch, cw)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
     n, f, _ = off3.shape
+    _check_coarse_kernel(planes, f)
     out = torch.empty((n, ch, cw), dtype=torch.int32, device=planes.device)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = coarse_max_plan(off3, tuple(planes.shape), ch, cw)
     _launch(
         "coarse_scores", planes.device, planes.data_ptr(), planes.shape[1], planes.shape[2],
-        off3.data_ptr(), n, f, ch, cw, out.data_ptr(),
+        plan.feat.data_ptr(), plan.starts.data_ptr(), n, f, ch, cw,
+        _GEOMETRY(*plan.geometry), coarse_split(plan, planes.device), out.data_ptr(),
     )
     coarse_scores.launches += 1
     return out
@@ -302,16 +384,19 @@ def coarse_scores(planes, off3, ch: int, cw: int) -> torch.Tensor:
 coarse_scores.launches = 0
 
 
+def _check_coarse_kernel(planes, f: int) -> None:
+    if f > _MAX_FEATURES:
+        raise ValueError(f"the coarse kernel takes at most {_MAX_FEATURES} features, got {f}")
+    if planes.shape[2] % 16 or planes.data_ptr() % 16:
+        raise ValueError("the coarse kernel loads 16-byte words: the planes' stride and address must be multiples of 16")
+
+
 def coarse_max(planes, off3, lim, ch: int, cw: int, plan=None) -> torch.Tensor:
     """int32 [N]: each template's max coarse score over the cells where it
     fits (gy < min(lim[n, 0], ch), gx < min(lim[n, 1], cw)), -1 where none does.
 
-    planes, off3, ch, cw as for coarse_scores; lim: int32 [N, 2]. plan: the
-    CoarseMaxPlan of off3 at this geometry (coarse_max_plan); without one, a
-    launch builds it first, which copies off3 to the host. The kernel
-    leaves out features on the trailing plane, which must be all zero (it
-    is: invalid features point there), and is exact for plane bytes up to 7
-    (responses are 0..4) and F <= 8192."""
+    planes, off3, ch, cw, plan and the kernel's limits as for coarse_scores;
+    lim: int32 [N, 2]."""
     _check_planes(planes, off3)
     _check_tensor("lim", lim, torch.int32, 2, planes.device)
     n, f, _ = off3.shape
@@ -325,10 +410,7 @@ def coarse_max(planes, off3, lim, ch: int, cw: int, plan=None) -> torch.Tensor:
         return coarse_max_plain(planes, off3, lim, ch, cw)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
-    if f > _MAX_FEATURES:
-        raise ValueError(f"coarse_max takes at most {_MAX_FEATURES} features, got {f}")
-    if planes.shape[2] % 16 or planes.data_ptr() % 16:
-        raise ValueError("coarse_max loads 16-byte words: the planes' stride and address must be multiples of 16")
+    _check_coarse_kernel(planes, f)
     out = torch.full((n,), -1, dtype=torch.int32, device=planes.device)
     if n == 0 or ch * cw == 0:
         return out

@@ -1,11 +1,12 @@
 """The masked-max kernel's plan (`similarity_cuda.coarse_max_plan`) on the CPU.
 
-The CUDA kernel (csrc/similarity.cu, `coarse_max_kernel`) runs only on the
+The CUDA kernel (csrc/similarity.cu, `coarse_kernel<false>`) runs only on the
 card. What it does with the plan is followed here step by step in numpy
-(`planned_max`): stage each chunk's planes as rectangles of stage_rows x
-4 * pitch bytes (zero past the planes' stride), add each template's bucket
-of features for that chunk over the 8-cell items of its units' rows, mask
-the cells outside the fit box, take the max. On random seeded banks at small
+(`planned_max`): for each band of 32 rows x 40 columns, stage each chunk's
+planes as the band's rectangles of stage_rows x 4 * pitch bytes (zero past
+the planes), add each template's bucket of features for that chunk over the
+8-cell items of its band's rows, mask the cells outside the fit box, take
+the max. On random seeded banks at small
 shapes this must equal `coarse_max_plain` exactly, and JAX's
 `coarse_max_pallas` (interpret mode) on one case.
 """
@@ -22,31 +23,48 @@ from linemod_tpu_torch.ops import similarity_cuda as sc
 torch.set_num_threads(2)
 
 
+def band_stage(pl, plan, c, row0, col0):
+    """Chunk c's stage for the band whose corner is (row0, col0), flat: of
+    each plane, rows row0 .. row0 + stage_rows and 4 * pitch bytes from col0
+    rounded down to 16, zero past the planes; and where the band's first
+    column lies in it."""
+    width, per_chunk = 4 * plan.pitch, plan.chunk_planes
+    col_start = col0 & ~15
+    stage = np.zeros((per_chunk, plan.stage_rows, width), np.uint8)
+    block = pl[c * per_chunk : min((c + 1) * per_chunk, pl.shape[0] - 1),
+               row0 : row0 + plan.stage_rows, col_start : col_start + width]
+    stage[: block.shape[0], : block.shape[1], : block.shape[2]] = block
+    return stage.reshape(-1), col0 - col_start
+
+
 def planned_max(planes, plan, lim, ch, cw):
     """coarse_max by the plan's steps, in numpy, with the kernel's indexing:
-    the 8-cell items of every unit (32 rows x 40 columns) at column x0 read
-    the staged bytes feat + gy * 4 * pitch + x0 .. + 7 of their chunk, as
-    three aligned words from (feat & ~3) + gy * 4 * pitch + x0, which must
-    lie inside the chunk's stage."""
+    each band of 32 rows x 40 columns stages its own rectangles
+    (band_stage); the 8-cell items of its lane rows at column x0 read the
+    staged bytes feat + lane * 4 * pitch + x0 .. + 7 of their chunk, as
+    three aligned words from (feat & ~3) + lane * 4 * pitch + x0, which
+    must lie inside the chunk's stage."""
     pl = planes.numpy()
     feat, starts = plan.feat.numpy(), plan.starts.numpy()
-    rows_s, width, per_chunk = plan.stage_rows, 4 * plan.pitch, plan.chunk_planes
+    width, ur, uc = 4 * plan.pitch, sc._UNIT_ROWS, sc._UNIT_COLS
     n = feat.shape[0]
-    cols = plan.col_bands * sc._UNIT_COLS
-    assert plan.row_bands * sc._UNIT_ROWS >= ch and cols >= cw and plan.pitch % 2
-    cell = (np.arange(ch)[:, None] * width + np.arange(cols)[None, :]).reshape(-1)
-    acc = np.zeros((n, cell.size), np.int64)
-    for c in range(plan.chunks):
-        stage = np.zeros((per_chunk, rows_s, width), np.uint8)
-        block = pl[c * per_chunk : min((c + 1) * per_chunk, pl.shape[0] - 1), :rows_s, :width]
-        stage[: block.shape[0], :, : block.shape[2]] = block
-        flat = stage.reshape(-1)
-        for t in range(n):
-            offs = feat[t, starts[t, c] : starts[t, c + 1]]
-            acc[t] += flat[offs[:, None] + cell[None, :]].sum(0, dtype=np.int64)
-            if offs.size:
-                assert (offs & ~3).max() + (ch - 1) * width + cols - 8 + 12 <= flat.size
-    acc = acc.reshape(n, ch, cols)[:, :, :cw]
+    assert plan.row_bands * ur >= ch and plan.col_bands * uc >= cw and plan.pitch % 2
+    acc = np.zeros((n, plan.row_bands * ur, plan.col_bands * uc), np.int64)
+    lane, x = np.arange(ur), np.arange(uc)
+    for rb in range(plan.row_bands):
+        for cb in range(plan.col_bands):
+            row0, col0 = rb * ur, cb * uc
+            for c in range(plan.chunks):
+                flat, at = band_stage(pl, plan, c, row0, col0)
+                # lanes below the grid read row 0; their sums are never kept
+                cell = (np.where(row0 + lane < ch, lane, 0)[:, None] * width + at + x).reshape(-1)
+                for t in range(n):
+                    offs = feat[t, starts[t, c] : starts[t, c + 1]]
+                    sums = flat[offs[:, None] + cell[None, :]].sum(0, dtype=np.int64)
+                    acc[t, row0 : row0 + ur, col0 : col0 + uc] += sums.reshape(ur, uc)
+                    if offs.size:
+                        assert (offs & ~3).max() + cell.max() + 5 <= flat.size
+    acc = acc[:, :ch, :cw]
     lim = lim.numpy()
     ny = np.clip(lim[:, 0], 0, ch)[:, None, None]
     nx = np.clip(lim[:, 1], 0, cw)[:, None, None]
@@ -154,28 +172,29 @@ def test_planned_max_equals_pallas(rng):
 
 
 def test_state_carries_the_plan_and_subsets_drop_it():
-    """The state builds the plan once when the prefiltered cut is configured;
-    the cuts' row subsets drop it, and a plan for a subset's own triplets
-    (the rescan's ascending selection) follows coarse_max_plain."""
+    """Every state builds the plan once, whatever cut is configured; the
+    cuts' row subsets cut it with their triplets (same geometry), and the
+    cut plan of the rescan's ascending selection follows coarse_max_plain."""
     from linemod_tpu_torch.models.template_bank import make_synthetic_bank
     from linemod_tpu_torch.ops.matching import MatchConfig, _coarse_rows, _planes_3d, build_match_state
     from linemod_tpu_torch.ops.extract import downsample2
 
     kw = dict(width=320, height=240, top_k=8, template_chunk=8)
     bank = make_synthetic_bank(48, seed=9, bbox_wh=48, image_wh=(320, 240))
-    assert build_match_state(bank, MatchConfig(**kw), "cpu").coarse_plan is None
+    dense = build_match_state(bank, MatchConfig(**kw), "cpu")
+    assert dense.coarse_plan.off3 is dense.off3_coarse
     state = build_match_state(bank, MatchConfig(prefilter_sel=16, **kw), "cpu")
     plan = state.coarse_plan
-    assert plan is not None and plan.off3 is state.off3_coarse
+    assert plan.off3 is state.off3_coarse and plan.geometry == dense.coarse_plan.geometry
     assert dataclasses.replace(state, cfg=state.cfg).coarse_plan is plan
     sel = torch.from_numpy(np.sort(np.random.default_rng(2).permutation(48)[:20]))
     sub = _coarse_rows(state, sel)
-    assert sub.coarse_plan is None
+    assert sub.coarse_plan.off3 is sub.off3_coarse and sub.coarse_plan.geometry == plan.geometry
     color = torch.from_numpy(np.random.default_rng(3).uniform(0, 255, (240, 320, 3)).astype(np.float32))
     planes = _planes_3d(downsample2(color), 8, state.max_cells_coarse)
     ch, cw = state.coarse_shape[:2]
     for st in (state, sub):
-        p = plan if st is state else sc.coarse_max_plan(st.off3_coarse, tuple(planes.shape), ch, cw)
+        p = st.coarse_plan
         want = sc.coarse_max(planes, st.off3_coarse, st.lim_coarse, ch, cw, plan=p).numpy()
         np.testing.assert_array_equal(planned_max(planes, p, st.lim_coarse, ch, cw), want)
 
@@ -201,13 +220,14 @@ def test_plan_rejects_what_the_kernel_cannot_take(monkeypatch):
 
 
 def test_split_tool_cuts_lines_the_kernel_has():
-    """The split tool builds the kernel with its adds or its stage cut out
-    by replacing one source line each; the lines must still be there."""
+    """The split tool builds the kernels with their adds, their stage, the
+    scan's combine or its 16-byte stores cut out by replacing one source
+    line each; the lines must still be there, once."""
     import os
 
     from linemod_tpu_torch.ops import cuda_lib
-    from linemod_tpu_torch.tools.coarse_max_split import CUTS
+    from linemod_tpu_torch.tools.coarse_max_split import CUTS, SCAN_CUTS
 
     src = open(os.path.join(cuda_lib.CSRC, "similarity.cu")).read()
-    for name, (line, _) in CUTS.items():
+    for name, (line, _) in {**CUTS, **SCAN_CUTS}.items():
         assert src.count(line) == 1, name
