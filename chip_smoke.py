@@ -19,8 +19,13 @@ Drives the port's paths on the card and checks them, in phases:
    blocks, staged bytes, lookups/ms): the fixture (2,048 templates), the
    large-bank rescan (the 1,024 selected templates, plan cut by rows), a
    4,096-template streaming chunk (plan cut by rows) and a 1280x960 random
-   frame with a 2,048-template synthetic bank; the fine refine at the
-   fixture and at 1280x960; the masked max at the fixture's coarse planes
+   frame with a 2,048-template synthetic bank; the fine refine at its four
+   shapes (tools/fine_time.fine_cases: the fixture's 512 candidates,
+   1280x960, the dual shape F=128 window 4 on synthetic [401, 120, 256]
+   planes, K=2,048) and on its edge cases (planes of 4 past a byte lane's
+   flush, windows 1, 2, 3, 5, 12, 20 and 32, F=37, K=1, features on the zero
+   plane, windows ending at the planes' last byte), its bound counting the
+   distinct plane bytes the windows read; the masked max at the fixture's coarse planes
    with the 96,300 bank (with its design numbers) and at 1280x960, with
    templates whose bounds fit no cell; the coarse scan and the masked max
    on the edge cases: planes of 4 (sums of 256 and 512, past a byte lane),
@@ -86,7 +91,9 @@ SIM_ATOL = 1e-4
 # 700 W), and int32 adds at the INT32 rate: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x 1,980 MHz boost (data sheet) =
 # 16.7 T adds/s. The coarse kernels (2.1, 2.3) add 4 cells per u32 add
-# (byte lanes), the fine refine (2.2) one int32 add per feature and cell.
+# (byte lanes), the fine refine (2.2) one int32 add per feature and cell;
+# 2.2's bytes are the distinct plane bytes its windows read
+# (tools/fine_time.fine_work), not the whole planes.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
@@ -200,14 +207,13 @@ def main() -> int:
     from linemod_tpu_torch.ops.matching import (
         _planes_3d,
         _template_maxes,
-        candidate_cut,
         candidate_cut_prefilter,
-        coarse_similarity,
     )
     from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER
     from linemod_tpu_torch.pipeline.benchmark import model_vertices, read_ground_truth_pose, score_add
     from linemod_tpu_torch.pipeline.pose_detection import PoseDetection, make_match_config, resolve_prefilter_packed
     from linemod_tpu_torch.tools.coarse_max_split import scan_cases, synthetic_1280
+    from linemod_tpu_torch.tools.fine_time import fine_cases, fine_edge_cases, fine_work
     from linemod_tpu_torch.utils.png import read_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -266,18 +272,11 @@ def main() -> int:
     coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, state.max_cells_coarse)
     big_coarse_p = _planes_3d(downsample2(colorf), cfg.t_coarse, big_state.max_cells_coarse)
     ch, cw = state.coarse_shape[:2]
-    win = -(-2 * cfg.t_coarse // cfg.t_fine)
-    _, cand_t, cgy, cgx = candidate_cut(coarse_similarity(state, coarse_p), cw, cfg.top_k)
-    span = 2 * cfg.t_coarse
-    base_yx = torch.stack([cgy * span // cfg.t_fine, cgx * span // cfg.t_fine], 1).int()
-    cand_t = cand_t.int()
     n, f = state.off3_coarse.shape[:2]
     nm = big_state.off3_coarse.shape[0]
-    k = cand_t.shape[0]
 
     big, big_color = synthetic_1280(dev)
     big_cfg = big.cfg
-    big_fine = _planes_3d(big_color, big_cfg.t_fine, big.max_cells_fine)
     big_coarse = _planes_3d(downsample2(big_color), big_cfg.t_coarse, big.max_cells_coarse)
     bch, bcw = big.coarse_shape[:2]
 
@@ -313,20 +312,47 @@ def main() -> int:
     check(err_c == 0, "coarse_scores kernel != plain")
 
     coarse_args = (coarse_p, state.off3_coarse, ch, cw)
-    fine_args = (fine_p, state.off3_fine, cand_t, base_yx, win)
-    err_f = max_abs_err(sc.fine_scores(*fine_args), sc.fine_scores_plain(*fine_args))
+    # the fine refine (2.2) at its four shapes: the main path's (the
+    # fixture's candidates), 1280x960, the dual shape (synthetic) and K=2,048;
+    # then its edge cases; the bound counts the distinct plane bytes the
+    # windows read, with the whole planes' figure beside it
+    fine_shapes = fine_cases(dev, state, fine_p, coarse_p, int(bank.bbox[:, 2:4].max()), big, big_color)
+    fine_args = next(iter(fine_shapes.values()))  # the main path's: the frame's cut
+    _, _, cand_t, base_yx, win = fine_args
+    k = cand_t.shape[0]
+    err_f, fine_times, fine_bounds = 0, {}, {}
+    for label, args_f in {**fine_shapes, **fine_edge_cases(dev)}.items():
+        got_f = sc.fine_scores(*args_f)
+        err = max_abs_err(got_f, sc.fine_scores_plain(*args_f))
+        err_f = max(err_f, err)
+        lanes_row, slices = sc.fine_layout(args_f[4])
+        shape_f = (f"planes {tuple(args_f[0].shape)} x {tuple(args_f[1].shape)}, K={args_f[2].shape[0]}, "
+                   f"win {args_f[4]} ({lanes_row} lanes a row, {slices} slices)")
+        if label.startswith("planes of 4"):
+            check(int(got_f.min()) == int(got_f.max()) == 4 * args_f[1].shape[1], f"fine edge case {label}")
+        if label not in fine_shapes:
+            print(f"  fine edge case {label}: {shape_f}; max|kernel-plain| {err}, max {int(got_f.max())}")
+            continue
+        work = fine_work(*args_f)
+        fine_times[label] = kernel_times(lambda a=args_f: sc.fine_scores(*a))
+        fine_bounds[label] = bound(work["bytes"], work["adds"])
+        whole = bound(work["whole_bytes"], work["adds"])
+        phase(2, f"fine_scores, {label}: {shape_f}; max|kernel-plain| {err}; kernel {fmt(fine_times[label])}; "
+                 f"bound {fine_bounds[label][0]:.6f} ms by {fine_bounds[label][1]} ({work['touched']} distinct "
+                 f"plane bytes, {work['bytes']} B, {work['adds']} adds; with the whole planes "
+                 f"{whole[0]:.6f} ms) ({card})")
+    check(err_f == 0, "fine_scores kernel != plain")
     torch.cuda.synchronize()
     times = {
         "coarse": (next(iter(scan_times.values())),
                    kernel_times(lambda: sc.coarse_scores_plain(*coarse_args), PLAIN_LAUNCHES)),
-        "fine": (kernel_times(lambda: sc.fine_scores(*fine_args)),
+        "fine": (fine_times[next(iter(fine_shapes))],
                  kernel_times(lambda: sc.fine_scores_plain(*fine_args), PLAIN_LAUNCHES)),
     }
     bounds = {
         "coarse": bound(nbytes(coarse_p, state.off3_coarse) + 4 * n * ch * cw,
                         live_lookups(state.off3_coarse, coarse_p, ch * cw) / 4),
-        "fine": bound(nbytes(fine_p, cand_t, base_yx) + k * f * 12 + 4 * k * win * win,
-                      live_lookups(state.off3_fine[cand_t.long()], fine_p, win * win)),
+        "fine": fine_bounds[next(iter(fine_shapes))],
     }
     # the nearest single PyTorch call: embedding_bag's sum over a materialised
     # [rows, F] index into the planes as a float column (index built untimed)
@@ -351,25 +377,10 @@ def main() -> int:
         "fine": kernel_times(lambda: emb(fine_idx, fine_w, mode="sum")),
     }
     del coarse_idx, fine_idx, lib_c, lib_f
-    phase(2, f"fixture shapes: fine planes {tuple(fine_p.shape)} x {k} candidates win {win} "
-             f"max|kernel-plain| {err_f}")
+    phase(2, "fixture shapes: the kernels, their plain versions and their library calls")
     for name, (k_t, p_t) in times.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, embedding_bag {fmt(library[name])}, "
               f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} ({card})")
-
-    lim = big.lim_coarse.cpu().numpy()
-    rng = np.random.default_rng(7)
-    bt = rng.integers(0, big.n_templates, k)
-    bgy = rng.integers(0, 1 << 20, k) % lim[bt, 0]
-    bgx = rng.integers(0, 1 << 20, k) % lim[bt, 1]
-    big_base = np.stack([bgy * span // big_cfg.t_fine, bgx * span // big_cfg.t_fine], 1)
-    big_base = torch.from_numpy(big_base.astype(np.int32)).to(dev)
-    big_t = torch.from_numpy(bt.astype(np.int32)).to(dev)
-    big_fine_args = (big_fine, big.off3_fine, big_t, big_base, win)
-    err_bf = max_abs_err(sc.fine_scores(*big_fine_args), sc.fine_scores_plain(*big_fine_args))
-    phase(2, f"1280x960 random frame, fine max|kernel-plain| {err_bf}, kernel "
-             f"{fmt(kernel_times(lambda: sc.fine_scores(*big_fine_args)))}")
-    check(err_f == 0 and err_bf == 0, "fine_scores kernel != plain")
 
     # the masked max at the 96,300 bank's state and at 1280x960; some
     # templates get bounds that fit no cell, so -1 is exercised
@@ -668,7 +679,7 @@ def main() -> int:
     kernels = [
         entry("coarse_scores", "similarity.cu", f"{pallas}:76", launches["coarse"], err_c,
               *times["coarse"], bounds["coarse"], library["coarse"]),
-        entry("fine_scores", "similarity.cu", f"{pallas}:261", launches["fine"], max(err_f, err_bf),
+        entry("fine_scores", "similarity.cu", f"{pallas}:261", launches["fine"], err_f,
               *times["fine"], bounds["fine"], library["fine"]),
         entry("coarse_max", "similarity.cu", f"{pallas}:159", big_launches["coarse_max"], max(err_m, err_bm),
               *max_times, bounds["coarse_max"], None),

@@ -8,7 +8,7 @@
 //                           linemod_tpu/ops/similarity_pallas.py:42-107
 //   coarse_kernel<false> <- coarse_max_pallas / _make_coarse_max_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:110-216
-//   fine_scores_kernel   <- fine_scores_pallas / _fine_kernel,
+//   fine_kernel<L, S>    <- fine_scores_pallas / _fine_kernel,
 //                           linemod_tpu/ops/similarity_pallas.py:222-299
 //
 // All three are gather-accumulates over per-template feature tables:
@@ -76,9 +76,44 @@
 // take. The scan at the fixture is short: a block's 3 chunks, its combine
 // and its stores, with one cluster round on the card.
 //
-// The fine refine reads 512 * 64 * 64 ~ 2.1 M plane bytes a frame from the
-// 3.9 MB fine planes, which sit in L2: one thread per window cell, the
-// template's offsets staged in shared memory, one byte load a feature.
+// The fine refine (fine_kernel) sums each of K candidates' F features over
+// a win x win window: at the fixture 512 x 64 windows of 8 rows of 8
+// bytes, ~2.1 M plane bytes (347 KB distinct) from the 3.9 MB fine planes,
+// which the linearize step has just written and which sit in L2. What
+// bounds it is the L2: each row's 8 bytes come in one or two 32-byte
+// sectors, ~10 MB of sectors at the fixture, ~2 us at the ~5 TB/s the L2
+// serves, which the L1 cuts only where rows repeat; then the chain of
+// dependent round trips (the candidate's template, its triplets, the rows)
+// and the launch. One thread a cell (the first port) reads the same
+// sectors, so at window 8 the design matches it; it wins where that one
+// left lanes idle (window 4: 16 threads a block). The design:
+//   - a warp a group of a candidate's window rows, two warps a candidate
+//     from window 2 to 8 (more warps in flight than one a candidate: faster
+//     at 1280x960 and the dual shape), no shared memory and no
+//     __syncthreads();
+//   - lane = (slice s, row r, word j): L lanes a window row hold its W + 1
+//     consecutive aligned plane words (W = ceil(win / 4) result words, L a
+//     power of two >= W + 1), so one load instruction reads whole rows, a
+//     request a row: at win 8, L = 4 and 2 slices of 4 rows (2 features an
+//     instruction); at win 4, L = 2 and 8 slices of 2 rows; idle lanes
+//     read words that live lanes read, so a batch reads exactly the
+//     sectors its rows need. A first design with lanes as (row, slice),
+//     each lane loading its row's 3 words itself, made 24 requests a
+//     feature and was slower than one thread a cell (PERF.md, Findings);
+//   - the warp takes its template's features 32 at a time: lane l loads
+//     feature b + l's triplet (3 coalesced loads a batch; the next batch's
+//     are loaded before this one is added) and makes its flat offset; slice
+//     s takes the batch's features s, s + S, ... by __shfl_sync, issues all
+//     their loads, then adds them: lane j joins its word and the next
+//     lane's (__shfl_down_sync) with a funnel shift (the coarse kernel's
+//     trick), 4 byte lanes a word, flushed into u16 pairs every kFineFlush
+//     features a lane (bytes <= 7 exact);
+//   - the S slices' u16 pairs are summed with __shfl_xor_sync (F <= 8192
+//     keeps the totals under 65,536, so no widening), and lane (0, r, j)
+//     stores cells 4j .. 4j + 3 of row r, one 16-byte store where win is a
+//     multiple of 4.
+// No tensor cores and no TMA: there is no product to give wgmma and no
+// tile for TMA, only scattered 8-byte rows.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,6 +148,15 @@ constexpr int kMaxSplit = 8;
 // items of 8 cells (16 bytes), kept in the stage's buffer after the last
 // chunk
 constexpr int kPartItems = kScanUnits * 32 * kItems;
+// the fine kernel: at most kFineMaxWarps warps a block (the wrapper passes
+// its FINE_WARPS), features taken kFineBatch at a time
+// (one offset a lane), byte lanes flushed every kFineFlush features a lane,
+// at most kFineMaxFeatures features (u16 totals of bytes <= 7);
+// ops/similarity_cuda.py holds the same numbers
+constexpr int kFineMaxWarps = 8;
+constexpr int kFineBatch = 32;
+constexpr int kFineFlush = 32;
+constexpr int kFineMaxFeatures = 8192;
 
 struct Geometry {
   int n_planes, stage_rows, pitch, chunk_planes, chunks, row_bands, col_bands;
@@ -378,31 +422,103 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 }
 
 // scores[k, dy, dx] = sum_f planes[p_f, by_k + sy_f + dy, bx_k + sx_f + dx]
-// over the features of template cand_t[k]; one block per candidate, one
-// thread per window cell (win * win threads).
-// dynamic shared memory: f int32
-__global__ void fine_scores_kernel(const uint8_t* __restrict__ planes,
-                                   int rows, int stride,
-                                   const int32_t* __restrict__ off3, int f,
-                                   const int32_t* __restrict__ cand_t,
-                                   const int32_t* __restrict__ base_yx,
-                                   int win, int32_t* __restrict__ out) {
-  extern __shared__ int32_t s_off[];
-  const int k = blockIdx.x;
-  const int32_t* trips = off3 + static_cast<size_t>(cand_t[k]) * f * 3;
-  for (int i = threadIdx.x; i < f; i += blockDim.x) {
-    s_off[i] = flat_offset(trips + static_cast<size_t>(i) * 3, rows, stride);
-  }
-  __syncthreads();
+// over the features of template cand_t[k]. A candidate takes `groups` =
+// ceil(win / kRows) warps, one a group of kRows rows; warp w of block b is
+// warp b * (blockDim.x / 32) + w of the grid, group g of candidate c in
+// order c * groups + g. A lane is (slice s, row r, word j) of L lanes a row
+// and kRows rows a slice; a row's W = ceil(win / 4) result words need
+// W + 1 <= L plane words. f >= 1. last_word: the planes' last 32-bit word
+// (the extra word's load is clamped to it).
+// (minimum 1 block an SM: without it ptxas keeps 32 registers and issues
+// each load behind the previous one's shuffle, 3.5x slower at the fixture)
+template <int L, int S>
+__global__ void __launch_bounds__(kFineMaxWarps * 32, 1)
+    fine_kernel(const uint8_t* __restrict__ planes, int rows, int stride,
+                int last_word, const int32_t* __restrict__ off3, int f,
+                const int32_t* __restrict__ cand_t,
+                const int32_t* __restrict__ base_yx, int k, int win,
+                int32_t* __restrict__ out) {
+  constexpr int kRows = 32 / (L * S);
+  constexpr int kPer = kFineBatch / S;  // a slice's features of a batch
+  constexpr int kFlushBatches = kFineFlush / kPer;
+  const int lane = threadIdx.x & 31;
+  const int groups = (win + kRows - 1) / kRows;
+  const int gw = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int c = gw / groups;
+  if (c >= k) return;  // warp-uniform
+  const int dy = (gw - c * groups) * kRows + lane / L % kRows;
+  const int j = lane % L;
+  const int s = lane / (L * kRows);
+  const int row_words = (win + 3) >> 2;
+  const int32_t* trips = off3 + static_cast<size_t>(cand_t[c]) * f * 3;
+  const int by = base_yx[2 * c], bx = base_yx[2 * c + 1];
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(planes);
+  // feature g's flat offset into the planes; past the last feature, the
+  // last feature's
+  auto offset_of = [&](int g) {
+    return flat_offset(trips + 3 * static_cast<size_t>(min(g, f - 1)), rows, stride);
+  };
 
-  const int dy = threadIdx.x / win;
-  const int dx = threadIdx.x - dy * win;
-  const uint8_t* base = planes +
-                        static_cast<size_t>(base_yx[2 * k] + dy) * stride +
-                        base_yx[2 * k + 1] + dx;
-  int32_t acc = 0;
-  for (int i = 0; i < f; ++i) acc += base[s_off[i]];
-  out[static_cast<size_t>(k) * win * win + threadIdx.x] = acc;
+  // every lane loads, so that a batch's loads are all in flight, and
+  // reads only sectors the batch needs: lanes past the window's last row
+  // or the row's extra word, and features past the last, read words a
+  // live lane reads; the extra word's lanes read the row's last word
+  // where the row's bytes end before the extra word (the funnel shift
+  // then takes none of its bytes that are kept); only lanes
+  // j < row_words of live rows add
+  const bool adds = dy < win && j < row_words;
+  // the extra word is needed where (at & 3) > slack
+  const int slack = j >= row_words ? 4 * row_words - win : -1;
+  const int base = (by + min(dy, win - 1)) * stride + bx + 4 * min(j, row_words);
+  // byte lanes, and u16 pairs: acc0 holds cells 4j and 4j + 2, acc1
+  // 4j + 1 and 4j + 3
+  uint32_t a8 = 0, acc0 = 0, acc1 = 0;
+  // lane l holds the offset of the batch's feature l
+  int mine = offset_of(lane);
+  for (int b = 0, batch = 1; b < f; b += kFineBatch, ++batch) {
+    const int next = offset_of(b + kFineBatch + lane);
+    const int nb = min(kFineBatch, f - b);
+    // the slice's features of the batch: all loads first, then the adds
+    uint32_t w[kPer], sh[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int at = base + __shfl_sync(0xffffffffu, mine, s + S * i);
+      sh[i] = (at & 3) << 3;
+      w[i] = __ldg(words + min((at >> 2) - ((at & 3) <= slack), last_word));
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      // the row's next word is the next lane's
+      const uint32_t hi = __shfl_down_sync(0xffffffffu, w[i], 1);
+      if (adds && s + S * i < nb) a8 += __funnelshift_r(w[i], hi, sh[i]);
+    }
+    if (batch % kFlushBatches == 0 || b + kFineBatch >= f) {
+      acc0 += a8 & 0x00FF00FFu;
+      acc1 += (a8 >> 8) & 0x00FF00FFu;
+      a8 = 0;
+    }
+    mine = next;
+  }
+  // the S slices of a row and word are lanes L * kRows apart
+#pragma unroll
+  for (int m = 1; m < S; m <<= 1) {
+    acc0 += __shfl_xor_sync(0xffffffffu, acc0, m * L * kRows);
+    acc1 += __shfl_xor_sync(0xffffffffu, acc1, m * L * kRows);
+  }
+  if (s != 0 || !adds) return;
+  int32_t* o = out + (static_cast<size_t>(c) * win + dy) * win + 4 * j;
+  const int32_t cell[4] = {static_cast<int32_t>(acc0 & 0xFFFFu),
+                           static_cast<int32_t>(acc1 & 0xFFFFu),
+                           static_cast<int32_t>(acc0 >> 16),
+                           static_cast<int32_t>(acc1 >> 16)};
+  if ((win & 3) == 0) {  // o is 16-byte aligned
+    *reinterpret_cast<int4*>(o) = make_int4(cell[0], cell[1], cell[2], cell[3]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (4 * j + m < win) o[m] = cell[m];
+    }
+  }
 }
 
 // The geometry from the wrapper's plan, its dynamic shared memory in bytes,
@@ -516,15 +632,52 @@ extern "C" int coarse_max(const void* planes, int rows, int stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fine_scores(const void* planes, int rows, int stride,
-                           const void* off3, int f, const void* cand_t,
-                           const void* base_yx, int k, int win, void* out,
-                           void* stream) {
-  const size_t smem = sizeof(int32_t) * f;
-  fine_scores_kernel<<<k, win * win, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), rows, stride,
-      static_cast<const int32_t*>(off3), f,
-      static_cast<const int32_t*>(cand_t),
-      static_cast<const int32_t*>(base_yx), win, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+// out: int32 [k, win, win]; win 1..32; warps: warps a block,
+// 1..kFineMaxWarps; lanes_row, slices: the wrapper's layout
+// (similarity_cuda.fine_layout), one of the instantiated pairs, with
+// ceil(win / 4) + 1 <= lanes_row. The planes' address and stride must be
+// multiples of 4 (the word loads), out's of 16 (the 16-byte stores).
+extern "C" int fine_scores(const void* planes, int n_planes, int rows,
+                           int stride, const void* off3, int f,
+                           const void* cand_t, const void* base_yx, int k,
+                           int win, int warps, int lanes_row, int slices,
+                           void* out, void* stream) {
+  if (win < 1 || win > 32 || warps < 1 || warps > kFineMaxWarps || f < 0 ||
+      f > kFineMaxFeatures || k < 0 || (win + 3) / 4 + 1 > lanes_row ||
+      slices < 1 || 32 % (lanes_row * slices) ||
+      stride % 4 ||
+      reinterpret_cast<uintptr_t>(planes) % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 0) return static_cast<int>(cudaSuccess);
+  if (f == 0) {
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(int32_t) * static_cast<size_t>(k) * win * win, st));
+  }
+  const int last_word = static_cast<int>(
+      static_cast<int64_t>(n_planes) * rows * (stride / 4) - 1);
+  const int slice_rows = 32 / (lanes_row * slices);
+  const int64_t grid_warps = static_cast<int64_t>(k) * ((win + slice_rows - 1) / slice_rows);
+  const dim3 grid(static_cast<unsigned>((grid_warps + warps - 1) / warps)), block(warps * 32);
+  const uint8_t* p = static_cast<const uint8_t*>(planes);
+  const int32_t* o3 = static_cast<const int32_t*>(off3);
+  const int32_t* ct = static_cast<const int32_t*>(cand_t);
+  const int32_t* by = static_cast<const int32_t*>(base_yx);
+  int32_t* o = static_cast<int32_t*>(out);
+#define FINE_LAUNCH(L, S)                                                  \
+  if (lanes_row == L && slices == S) {                                    \
+    fine_kernel<L, S><<<grid, block, 0, st>>>(p, rows, stride, last_word, \
+                                              o3, f, ct, by, k, win, o);  \
+    return static_cast<int>(cudaGetLastError());                          \
+  }
+  FINE_LAUNCH(2, 16)
+  FINE_LAUNCH(2, 8)
+  FINE_LAUNCH(4, 2)
+  FINE_LAUNCH(4, 1)
+  FINE_LAUNCH(8, 1)
+  FINE_LAUNCH(16, 1)
+#undef FINE_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

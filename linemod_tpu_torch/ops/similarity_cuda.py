@@ -60,7 +60,7 @@ _SIGNATURES = {
     "coarse_scores": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _GEOMETRY, _I, _P, _P],
     "coarse_scores_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "coarse_max": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _GEOMETRY, _P, _P],
-    "fine_scores": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P],
+    "fine_scores": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -304,6 +304,37 @@ def coarse_max_plan(off3: torch.Tensor, planes_shape, ch: int, cw: int) -> Coars
     )
 
 
+# ------------------------------------------------ the fine kernel's layout ---
+
+# the fine kernel's constants (csrc/similarity.cu): warps a block (at most
+# kFineMaxWarps, 8), features a lane adds into byte lanes
+# between flushes (kFineFlush), features at most (kFineMaxFeatures: u16
+# totals of bytes <= 7); the warp takes its template's features in batches
+# of FINE_BATCH (kFineBatch), one triplet a lane
+FINE_WARPS = 4
+FINE_FLUSH = 32
+FINE_BATCH = 32
+
+
+def fine_layout(win: int) -> tuple[int, int]:
+    """(lanes_row, slices): the fine kernel's lanes at window `win`
+    (fine_kernel<L, S>). A window row's W = ceil(win / 4) result words need
+    W + 1 aligned plane words, held by lanes_row lanes, the least power of
+    two >= W + 1; a warp holds 32 // lanes_row rows. A warp takes half the
+    window's rows rounded up to a power of two (at least 1, at most what it
+    holds), so a candidate takes two warps from windows 2 to 8 (measured
+    faster than one at 1280x960 and the dual shape, no slower at the
+    fixture and K=2,048); the warp's rows are split into `slices` slices
+    that take every slices-th feature of a batch. Lane = (slice *
+    rows_a_slice + row) * lanes_row + word; a candidate takes
+    ceil(win / rows_a_slice) warps."""
+    if not 1 <= win <= 32:
+        raise ValueError(f"window {win} outside 1..32")
+    lanes_row = 1 << (-(-win // 4)).bit_length()
+    rows = min(32 // lanes_row, max(1, (1 << (win - 1).bit_length()) // 2))
+    return lanes_row, 32 // lanes_row // rows
+
+
 # --------------------------------------------------------------- wrappers ---
 
 _active_clusters: dict[tuple, int] = {}
@@ -433,26 +464,33 @@ def fine_scores(planes, off3, cand_t, base_yx, win: int) -> torch.Tensor:
     the window at fine-grid origin base_yx[k] = (y, x).
 
     planes: uint8 [P+1, rows, stride]; off3: int32 [N, F, 3];
-    cand_t: int32 [K] in [0, N); base_yx: int32 [K, 2]."""
+    cand_t: int32 [K] in [0, N); base_yx: int32 [K, 2]; win 1..32. The kernel
+    takes a warp a group of a window's rows (FINE_WARPS warps a block, lanes
+    by `fine_layout`), reads the planes as 32-bit words, so their stride and
+    address must be multiples of 4, and is exact for plane bytes up to 7
+    (responses are 0..4) and F <= 8192."""
     _check_planes(planes, off3)
     _check_tensor("cand_t", cand_t, torch.int32, 1, planes.device)
     _check_tensor("base_yx", base_yx, torch.int32, 2, planes.device)
     k = cand_t.shape[0]
     if base_yx.shape != (k, 2):
         raise ValueError(f"base_yx must be [{k}, 2], got {tuple(base_yx.shape)}")
-    if not 1 <= win <= 32:
-        raise ValueError(f"window {win} outside 1..32")
+    fine_layout(win)
     if planes.device.type == "cpu":
         return fine_scores_plain(planes, off3, cand_t, base_yx, win)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
+    f = off3.shape[1]
+    if f > _MAX_FEATURES:
+        raise ValueError(f"the fine kernel takes at most {_MAX_FEATURES} features, got {f}")
+    if planes.shape[2] % 4 or planes.data_ptr() % 4:
+        raise ValueError("the fine kernel loads 32-bit words: the planes' stride and address must be multiples of 4")
     out = torch.empty((k, win, win), dtype=torch.int32, device=planes.device)
     if k == 0:
         return out
     _launch(
-        "fine_scores", planes.device, planes.data_ptr(), planes.shape[1], planes.shape[2],
-        off3.data_ptr(), off3.shape[1], cand_t.data_ptr(), base_yx.data_ptr(), k, win,
-        out.data_ptr(),
+        "fine_scores", planes.device, planes.data_ptr(), *planes.shape, off3.data_ptr(), f,
+        cand_t.data_ptr(), base_yx.data_ptr(), k, win, FINE_WARPS, *fine_layout(win), out.data_ptr(),
     )
     fine_scores.launches += 1
     return out

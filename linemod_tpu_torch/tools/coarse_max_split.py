@@ -82,19 +82,10 @@ _PARENT_SCAN = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ct
 REPS = 50
 
 
-def build_variants(parent: str | None = None) -> dict:
-    """name -> ctypes library: the kernel as it is, with each cut, and the
-    parent source where given (bound with its own scan signature)."""
-    src = open(os.path.join(cuda_lib.CSRC, "similarity.cu")).read()
-    out_dir = os.path.join(cuda_lib.BUILD_DIR, "split")
+def compile_texts(texts: dict, out_dir: str) -> dict:
+    """name -> ctypes library of each CUDA source text, one nvcc process
+    each, all started together (unbound: the caller sets argtypes)."""
     os.makedirs(out_dir, exist_ok=True)
-    texts = {"whole": src}
-    for name, (line, repl) in {**CUTS, **SCAN_CUTS}.items():
-        if line not in src:
-            raise RuntimeError(f"the kernel no longer has the line to cut for {name!r}")
-        texts[name] = src.replace(line, repl)
-    if parent is not None:
-        texts["parent"] = open(parent).read()
     procs = {}
     for name, text in texts.items():
         base = os.path.join(out_dir, name.replace(" ", "_"))
@@ -109,13 +100,28 @@ def build_variants(parent: str | None = None) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{log}")
-        lib = ctypes.CDLL(path)
+        libs[name] = ctypes.CDLL(path)
+    return libs
+
+
+def build_variants(parent: str | None = None) -> dict:
+    """name -> ctypes library: the kernel as it is, with each cut, and the
+    parent source where given (bound with its own scan signature)."""
+    src = open(os.path.join(cuda_lib.CSRC, "similarity.cu")).read()
+    texts = {"whole": src}
+    for name, (line, repl) in {**CUTS, **SCAN_CUTS}.items():
+        if line not in src:
+            raise RuntimeError(f"the kernel no longer has the line to cut for {name!r}")
+        texts[name] = src.replace(line, repl)
+    if parent is not None:
+        texts["parent"] = open(parent).read()
+    libs = compile_texts(texts, os.path.join(cuda_lib.BUILD_DIR, "split"))
+    for name, lib in libs.items():
         signatures = {"coarse_scores": _PARENT_SCAN} if name == "parent" else sc._SIGNATURES
         for fn in ("coarse_scores", "coarse_max"):
             if fn in signatures:
                 getattr(lib, fn).argtypes = signatures[fn]
                 getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
     return libs
 
 
@@ -137,7 +143,7 @@ def show(times: dict) -> None:
 
 def fixture_states(dev, big: bool):
     """(the fixture's detector, the 96,300-bank detector or None, the
-    frame's coarse planes for each)."""
+    frame's coarse planes for each, the recentred frame as float color)."""
     cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
     props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
     bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
@@ -148,7 +154,7 @@ def fixture_states(dev, big: bool):
     color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
     colorf = torch.from_numpy(dets[0].recenter(np.ascontiguousarray(color))).to(dev).float()
     planes = [_planes_3d(downsample2(colorf), d.state.cfg.t_coarse, d.state.max_cells_coarse) for d in dets]
-    return dets[0], dets[1] if big else None, planes[0], planes[-1]
+    return dets[0], dets[1] if big else None, planes[0], planes[-1], colorf
 
 
 def synthetic_1280(dev):
@@ -277,7 +283,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     libs = build_variants(args.parent)
-    det, det_big, planes, big_planes = fixture_states(dev, big=True)
+    det, det_big, planes, big_planes, _ = fixture_states(dev, big=True)
     print(card)
     if args.kernel in ("scan", "both"):
         cases = scan_cases(dev, det.state, planes, det_big.state, big_planes, *synthetic_1280(dev))

@@ -182,6 +182,32 @@ def test_cuda_kernels_equal_plain():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_fine_scores_equal_plain_at_its_shapes():
+    """The fine kernel against fine_scores_plain on the card at its four
+    shapes (the fixture's candidates, 1280x960, the dual shape, K=2,048)
+    and its edge cases (tools/fine_time), and its rejections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.tools.coarse_max_split import synthetic_1280
+    from linemod_tpu_torch.tools.fine_time import fine_cases, fine_edge_cases, fixture_fine
+
+    dev = torch.device("cuda")
+    cases = fine_cases(dev, *fixture_fine(dev), *synthetic_1280(dev))
+    for label, args in {**cases, **fine_edge_cases(dev)}.items():
+        launches = sc.fine_scores.launches
+        got = sc.fine_scores(*args)
+        assert sc.fine_scores.launches == launches + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, sc.fine_scores_plain(*args)), label
+    planes, off3, cand_t, base_yx, win = next(iter(cases.values()))
+    with pytest.raises(ValueError, match="32-bit words"):
+        sc.fine_scores(planes[:, :, :126].contiguous(), off3, cand_t, base_yx, win)
+    with pytest.raises(ValueError, match="8192 features"):
+        sc.fine_scores(planes, off3[:, :1].repeat(1, 8193, 1), cand_t, base_yx, win)
+
+
 def test_jax_state_dataclass_fields_are_ported():
     """The port's MatchState carries every array field of the JAX one."""
     from linemod_tpu.ops.matching import MatchState as JaxMatchState
