@@ -8,7 +8,8 @@ Drives the port's paths on the card and checks them, in phases:
 1. build the kernels from `linemod_tpu_torch/csrc/` with nvcc (one process
    per source, all started together), and the 96,300-template bank of the
    reference's shipped settings (the fixture bank's 1,950 templates followed
-   by 94,350 synthetic ones, seed 7) with its match state;
+   by 94,350 synthetic ones, seed 7) with its match state, and the dual
+   bank's (`example/banks_dual/`, color gradients and depth normals, T=5/8);
 2. each kernel against its plain PyTorch version on the card, exactly, with
    times of the kernel, its plain version and, where one PyTorch call
    computes the same function, that call: CUDA events around 50 calls
@@ -31,14 +32,20 @@ Drives the port's paths on the card and checks them, in phases:
    on the edge cases: planes of 4 (sums of 256 and 512, past a byte lane),
    templates on one plane, F=128, half the features on the zero plane, fit
    boxes 1-7 cells wide at every shift residue, bounds beyond the grid, 0
-   and negative;
+   and negative; all three at the dual fixture's shapes: the scan and the
+   masked max on its real coarse planes [1025, rows, stride] with the dual
+   state's triplets [2048, 128, 3], the fine refine on its real fine planes
+   [401, rows, stride] with the dual cut's 512 candidates at window 4;
 3. the main path: the fixture (640x480, the 1,950-template bank, ICP off)
    through `detect_submit` / `detect_collect`. The quantized maps equal the
    golden's with no pixel differing, the packed [512, 5] candidates equal
    the JAX reference's (tests/goldens/img0_torch_ref.npz; ints exact,
    similarities atol 1e-4), the top 8 equal tests/goldens/img0_golden.npz,
    the pose equals the JAX pose (0.5 mm, 1e-4) with ADD <= 21 mm against the
-   ground truth, and both scan kernels were launched;
+   ground truth, and both scan kernels were launched. The pose is scored
+   with VSD by the port's Benchmark (< 0.3, and within 1e-3 of the JAX
+   color pose's VSD in tests/goldens/img0_dual_ref.npz), and the card's
+   render of the ground-truth pose is held against the JAX render there;
 4. 20 more detect calls on the main path: median device ms of
    `detect_frame` (CUDA events), host post-processing ms and whole `detect`
    ms; then a torch.profiler window of 5 frames: device busy ms, device
@@ -53,10 +60,22 @@ Drives the port's paths on the card and checks them, in phases:
    identical templates forces a saturated cut, which is retried on the
    streaming cut. Times: median whole `detect` ms (20 calls) and a profile
    as in phase 4, one-frame ms of the streaming and dense cuts;
-6. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+6. the dual path: the fixture through `PoseDetection` with the dual bank
+   (the depth goes to the card). The normal-quantized maps equal the
+   golden's with no pixel differing at both levels, the packed [512, 5]
+   equals tests/goldens/img0_dual_ref.npz, the pose is within 0.5 mm / 1e-4
+   of the JAX pose with ADD <= 21 mm and VSD < 0.3 (and both within 1e-3 of
+   JAX's scores), and the scan and the fine refine were launched once each.
+   The same state with the prefiltered cut forced (`prefilter_sel` 1024,
+   proved exact, the masked max launched) and with the streaming cut
+   (`scan_chunk` 512) gives the dense packed array; the template maxes
+   equal the golden's; a saturated dual bank is retried with its depth.
+   Times: 20 dual detect calls and a profile, as in phase 4;
+7. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-7. a JSON line of per-kernel results (with `device_ms`), then the result line
-   {"ok": true, "device": {...}} last.
+8. a JSON line of per-kernel results (with `device_ms`, and the dual
+   shapes' numbers under `dual` for the three scan kernels), then the result
+   line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -82,11 +101,20 @@ EXAMPLE = os.path.join(REPO, "example")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "img0_golden.npz")
 TORCH_REF = os.path.join(REPO, "tests", "goldens", "img0_torch_ref.npz")
 BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
+DUAL_REF = os.path.join(REPO, "tests", "goldens", "img0_dual_ref.npz")
 REPS = 20
 # calls a kernel's time is taken over (its plain version's, where slow)
 LAUNCHES = 50
 PLAIN_LAUNCHES = 10
 SIM_ATOL = 1e-4
+# VSD and ADD against the JAX scores; the card's render of a pose against
+# JAX's: pixels whose coverage differs, as a share of the covered pixels,
+# and |depth| where both cover (the port fuses its dot products as XLA's
+# CPU backend does, and on the CPU its render of pose0 equals JAX's bit for
+# bit, tests/test_torch_render.py)
+SCORE_ATOL = 1e-3
+RENDER_COVERAGE = 1e-3
+RENDER_ATOL_MM = 1e-2
 # the least-time bound: device memory at 3.35 TB/s (H100 SXM data sheet,
 # 700 W), and int32 adds at the INT32 rate: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x 1,980 MHz boost (data sheet) =
@@ -207,13 +235,18 @@ def main() -> int:
     from linemod_tpu_torch.ops.matching import (
         _planes_3d,
         _template_maxes,
+        candidate_cut,
         candidate_cut_prefilter,
+        coarse_similarity,
     )
-    from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER
-    from linemod_tpu_torch.pipeline.benchmark import model_vertices, read_ground_truth_pose, score_add
+    from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER, VSD_CORRECT
+    from linemod_tpu_torch.ops.normals import quantize_normals
+    from linemod_tpu_torch.ops.rasterizer import render_views
+    from linemod_tpu_torch.pipeline.benchmark import Benchmark, model_vertices, read_ground_truth_pose, score_add
     from linemod_tpu_torch.pipeline.pose_detection import PoseDetection, make_match_config, resolve_prefilter_packed
     from linemod_tpu_torch.tools.coarse_max_split import scan_cases, synthetic_1280
     from linemod_tpu_torch.tools.fine_time import fine_cases, fine_edge_cases, fine_work
+    from linemod_tpu_torch.utils.ply import load_ply
     from linemod_tpu_torch.utils.png import read_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -264,8 +297,21 @@ def main() -> int:
     phase(1, f"{big_bank.num_templates}-template bank and its match state ({big_state.n_templates} "
              f"padded) built in {time.perf_counter() - t0:.2f} s")
     check(big_bank.num_templates == 96300 and big_state.n_templates == 96512, "96,300 bank size")
+    t0 = time.perf_counter()
+    dual_bank = TemplateBank.load(os.path.join(EXAMPLE, "banks_dual", "lagergehaeuse.npz"))
+    det_dual = PoseDetection(dual_bank, cam, dataclasses.replace(settings, only_color_modality=False), props, dev)
+    dual_state = det_dual.state
+    dual_cfg = dual_state.cfg
+    dual_ref = np.load(DUAL_REF)
+    torch.cuda.synchronize()
+    phase(1, f"dual bank ({dual_bank.num_templates} templates, {dual_state.n_templates} padded, "
+             f"t_fine {dual_cfg.t_fine}) and its match state built in {time.perf_counter() - t0:.2f} s")
+    check(dual_bank.num_templates == 1950 and dual_state.n_templates == 2048 and dual_cfg.dual_modality
+          and dual_cfg.t_fine == 5, "dual bank and config")
     color_c = det.recenter(np.ascontiguousarray(color))
     colorf = torch.from_numpy(color_c).to(dev).float()
+    depth_c = det.recenter(np.ascontiguousarray(depth))
+    depthf = torch.from_numpy(depth_c.astype(np.float32)).to(dev)
 
     # -- phase 2: kernels against their plain versions
     fine_p = _planes_3d(colorf, cfg.t_fine, state.max_cells_fine)
@@ -462,6 +508,71 @@ def main() -> int:
         err_m = max(err_m, err_e)
         err_c = max(err_c, err_s)
 
+    # the three kernels at the dual fixture's shapes: the frame's real planes
+    # of color gradients and depth normals (coarse [1025, rows, stride], fine
+    # [401, rows, stride]), the dual state's triplets and plan, and the dual
+    # cut's candidates at window 4
+    dual_fine_p = _planes_3d(colorf, dual_cfg.t_fine, dual_state.max_cells_fine, depthf)
+    dual_coarse_p = _planes_3d(downsample2(colorf), dual_cfg.t_coarse, dual_state.max_cells_coarse,
+                               depthf[::2, ::2])
+    dch, dcw = dual_state.coarse_shape[:2]
+    dn = dual_state.off3_coarse.shape[0]
+    dplan = dual_state.coarse_plan
+    dual_scan_args = (dual_coarse_p, dual_state.off3_coarse, dch, dcw)
+    dual_max_args = (dual_coarse_p, dual_state.off3_coarse, dual_state.lim_coarse, dch, dcw)
+    _, dcand_t, dgy, dgx = candidate_cut(coarse_similarity(dual_state, dual_coarse_p), dcw, dual_cfg.top_k)
+    dspan = 2 * dual_cfg.t_coarse
+    dual_fine_args = (dual_fine_p, dual_state.off3_fine, dcand_t.int(),
+                      torch.stack([dgy * dspan // dual_cfg.t_fine, dgx * dspan // dual_cfg.t_fine], 1).int(),
+                      -(-dspan // dual_cfg.t_fine))
+    dual_err = {
+        "coarse": max_abs_err(sc.coarse_scores(*dual_scan_args, plan=dplan), sc.coarse_scores_plain(*dual_scan_args)),
+        "coarse_max": max_abs_err(sc.coarse_max(*dual_max_args, plan=dplan), sc.coarse_max_plain(*dual_max_args)),
+        "fine": max_abs_err(sc.fine_scores(*dual_fine_args), sc.fine_scores_plain(*dual_fine_args)),
+    }
+    dual_times = {
+        "coarse": (kernel_times(lambda: sc.coarse_scores(*dual_scan_args, plan=dplan)),
+                   kernel_times(lambda: sc.coarse_scores_plain(*dual_scan_args), PLAIN_LAUNCHES)),
+        "coarse_max": (kernel_times(lambda: sc.coarse_max(*dual_max_args, plan=dplan)),
+                       kernel_times(lambda: sc.coarse_max_plain(*dual_max_args), PLAIN_LAUNCHES)),
+        "fine": (kernel_times(lambda: sc.fine_scores(*dual_fine_args)),
+                 kernel_times(lambda: sc.fine_scores_plain(*dual_fine_args), PLAIN_LAUNCHES)),
+    }
+    dual_work = fine_work(*dual_fine_args)
+    dual_live = (dual_state.off3_coarse[..., 0] < dual_coarse_p.shape[0] - 1).sum(1)
+    dual_lookups = live_lookups(dual_state.off3_coarse, dual_coarse_p, dch * dcw)
+    dual_max_lookups = fitting_cells(dual_state.lim_coarse, dch, dcw, dual_live)
+    dual_bounds = {
+        "coarse": bound(nbytes(dual_coarse_p, dual_state.off3_coarse) + 4 * dn * dch * dcw, dual_lookups / 4),
+        "coarse_max": bound(nbytes(dual_coarse_p, dual_state.off3_coarse, dual_state.lim_coarse) + 4 * dn,
+                            dual_max_lookups / 4),
+        "fine": bound(dual_work["bytes"], dual_work["adds"]),
+    }
+    dual_split = sc.coarse_split(dplan, dev)
+    dual_groups = dplan.groups(sc.SCAN_UNITS_PER_BLOCK)
+    shapes = {
+        "coarse": f"coarse_scores: planes {tuple(dual_coarse_p.shape)} x {tuple(dual_state.off3_coarse.shape)} "
+                  f"-> [{dn}, {dch}, {dcw}]",
+        "coarse_max": f"coarse_max: the same -> [{dn}]",
+        "fine": f"fine_scores: planes {tuple(dual_fine_p.shape)} x {tuple(dual_state.off3_fine.shape)}, "
+                f"K={dcand_t.shape[0]}, win {dual_fine_args[4]} ({dual_work['touched']} distinct plane bytes)",
+    }
+    phase(2, "dual fixture shapes (color gradients and depth normals): the kernels and their plain versions")
+    for name in ("coarse", "coarse_max", "fine"):
+        print(f"  {shapes[name]}: max|kernel-plain| {dual_err[name]}; kernel {fmt(dual_times[name][0])}, plain "
+              f"{fmt(dual_times[name][1])}, bound {dual_bounds[name][0]:.6f} ms by {dual_bounds[name][1]} ({card})")
+    print(f"  scan design: {sc.SCAN_UNITS_PER_BLOCK} templates of one of {dplan.row_bands * dplan.col_bands} bands "
+          f"a group, {dual_groups} groups x split S {dual_split} = {dual_groups * dual_split} blocks, "
+          f"{dplan.chunks} chunks of {dplan.chunk_planes} planes, staged rows {dplan.stage_rows} x "
+          f"{4 * dplan.pitch} B, {dplan.staged_bytes(sc.SCAN_UNITS_PER_BLOCK)[1]} B staged in all, "
+          f"{dual_lookups} lookups, {dual_lookups / dual_times['coarse'][0][0] / 1e9:.3f} G lookups/ms")
+    print(f"  masked max design: {sc.UNITS_PER_BLOCK} templates a group, {dplan.groups()} groups, "
+          f"{dplan.staged_bytes()[0]} B staged a group, {dplan.staged_bytes()[1]} B in all, "
+          f"{dual_max_lookups} lookups, {dual_max_lookups / dual_times['coarse_max'][0][0] / 1e9:.3f} G lookups/ms")
+    check(dplan.planes_shape[0] == 1025 and dual_fine_p.shape[0] == 401
+          and tuple(dual_state.off3_coarse.shape) == (2048, 128, 3), "the dual shapes")
+    check(max(dual_err.values()) == 0, "a kernel != plain at the dual shapes")
+
     # -- phase 3: the main path, the fixture end to end
     q0 = quantize_color_gradients(colorf)[0].cpu().numpy()
     q1 = quantize_color_gradients(downsample2(colorf))[0].cpu().numpy()
@@ -520,20 +631,53 @@ def main() -> int:
 
     check_pose(poses, ref, "main path", 3)
 
+    # the pose scored with VSD on the card; the card's render of the ground
+    # truth against JAX's
+    bench = Benchmark(load_ply(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply")), cam, dev)
+    scene = depth_c.astype(np.float32)
+
+    def check_vsd(pose, want, label, n_phase):
+        vsd = bench.score_vsd(scene, gt, pose)
+        phase(n_phase, f"{label} pose VSD {vsd:.5f} vs ground truth (JAX's {float(want):.5f})")
+        check(vsd < VSD_CORRECT, f"{label}: VSD {vsd} >= {VSD_CORRECT}")
+        check(abs(vsd - float(want)) <= SCORE_ATOL, f"{label}: VSD differs from JAX's")
+
+    check_vsd(poses[0], dual_ref["color_vsd"], "main path", 3)
+    render0 = bench.render(gt).cpu().numpy()
+    want0 = dual_ref["render0"]
+    covered = int((want0 > 0).sum())
+    cov_diff = int(((render0 > 0) != (want0 > 0)).sum())
+    both = (render0 > 0) & (want0 > 0)
+    depth_diff = float(np.abs(render0 - want0)[both].max())
+    render_ms = cuda_ms(lambda: bench.render(gt), reps=5)
+    views = render_views(bench.marr, gt.rotation_matrix()[None], gt.translation[None], cam)
+    phase(3, f"render of pose0 vs JAX: {cov_diff} of {covered} covered pixels differ in coverage, max|depth "
+             f"diff| {depth_diff:.4f} mm where both cover; {render_ms:.3f} ms a render (median of 5; {card}); "
+             f"render_views equals the render: {np.array_equal(views[0].cpu().numpy(), render0)}")
+    check(cov_diff <= RENDER_COVERAGE * covered and depth_diff <= RENDER_ATOL_MM, "the render differs from JAX's")
+    check(views.shape == (1, cam.height, cam.width) and np.array_equal(views[0].cpu().numpy(), render0),
+          "render_views differs from the single render")
+
     # -- phase 4: a few requests on the main path
+    def frame_program(detector):
+        """The detector's per-frame device program on the fixture frame,
+        uploaded once: fn(state=detector.state) -> packed tensor."""
+        color_t, depth_t = detector.upload(detector.recenter(color), detector.recenter(depth))
+        return lambda st=detector.state: detect_frame(st, color_t, depth_t)
+
     def request_times(detector, reps):
         dev_ms, post_ms, detect_ms = [], [], []
         depth_c = detector.recenter(np.ascontiguousarray(depth))
+        program = frame_program(detector)
         for _ in range(reps):
             t0 = time.perf_counter()
             detector.detect(color, depth, 1)
             torch.cuda.synchronize()
             detect_ms.append((time.perf_counter() - t0) * 1e3)
-            frame = torch.from_numpy(np.ascontiguousarray(detector.recenter(color))).to(dev)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            packed_t = detect_frame(detector.state, frame)
+            packed_t = program()
             end.record()
             end.synchronize()
             dev_ms.append(start.elapsed_time(end))
@@ -543,8 +687,8 @@ def main() -> int:
         return {k_: statistics.median(v) for k_, v in
                 (("device", dev_ms), ("post", post_ms), ("detect", detect_ms))}
 
-    def report_profile(n_phase, label, st, device_ms):
-        busy, count, top = profile_frames(lambda: detect_frame(st, frame))
+    def report_profile(n_phase, label, detector, device_ms):
+        busy, count, top = profile_frames(frame_program(detector))
         phase(n_phase, f"{label} profile (torch.profiler, 5 frames): device busy {busy:.3f} ms "
                        f"and {count:.0f} device operations per frame; idle {1 - busy / device_ms:.1%} "
                        f"of the {device_ms:.3f} ms detect_frame; top: "
@@ -554,7 +698,7 @@ def main() -> int:
     med = request_times(det, REPS)
     phase(4, f"{REPS} detect calls: detect_frame device {med['device']:.3f} ms, host post "
              f"{med['post']:.3f} ms, whole detect {med['detect']:.3f} ms (medians; {card})")
-    report_profile(4, "main path", state, med["device"])
+    report_profile(4, "main path", det, med["device"])
 
     # -- phase 5: the large-bank path
     big_cfg5 = big_state.cfg
@@ -608,7 +752,7 @@ def main() -> int:
     big_med = request_times(det_big, REPS)
     phase(5, f"{REPS} large-bank detect calls: detect_frame device {big_med['device']:.3f} ms, host post "
              f"{big_med['post']:.3f} ms, whole detect {big_med['detect']:.3f} ms (medians; {card})")
-    report_profile(5, "large-bank path", big_state, big_med["device"])
+    report_profile(5, "large-bank path", det_big, big_med["device"])
 
     # a saturated cut: identical templates tie every maximum at the selection
     # boundary, threshold 0 keeps it above the threshold
@@ -629,7 +773,79 @@ def main() -> int:
     check(sat_packed[-1, 0] == 0.0 and det_sat.retries == 1 and np.array_equal(resolved, streaming),
           "the saturated frame was not retried on the streaming cut")
 
-    # -- phase 6: the probes
+    # -- phase 6: the dual path (color gradients and depth normals)
+    nq = [quantize_normals(d)[0].cpu().numpy() for d in (depthf, depthf[::2, ::2])]
+    nmism = [int((q != dual_ref[k]).sum()) for q, k in zip(nq, ("nquant0", "nquant1"))]
+    phase(6, f"normal maps vs golden: {nmism[0]} of {nq[0].size} level-0 and {nmism[1]} of {nq[1].size} "
+             f"level-1 pixels differ")
+    check(nmism == [0, 0], "the card's normal maps differ from the golden")
+    sc.coarse_max_plan = matching_mod.coarse_max_plan = counting_plan
+    plans_built.clear()
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    handle = det_dual.detect_submit(color, depth)
+    dual_packed = handle[0].cpu().numpy()
+    dual_poses = det_dual.detect_collect(handle, 1)
+    dual_launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches,
+                     "coarse_max": sc.coarse_max.launches}
+    phase(6, f"dual path launches: coarse_scores {dual_launches['coarse']}, fine_scores {dual_launches['fine']}, "
+             f"coarse_max {dual_launches['coarse_max']}; kernel plans built {len(plans_built)}")
+    check(dual_launches == {"coarse": 1, "fine": 1, "coarse_max": 0}, "the dual path's kernel launches")
+    ints_equal = np.array_equal(dual_packed[:, [0, 1, 2, 4]], dual_ref["packed"][:, [0, 1, 2, 4]])
+    sim_err = float(np.abs(dual_packed[:, 3] - dual_ref["packed"][:, 3]).max())
+    phase(6, f"packed {list(dual_packed.shape)} vs JAX golden: ints equal {ints_equal}, max|sim diff| "
+             f"{sim_err:.3g}, {int(dual_packed[:, 4].sum())} valid")
+    check(dual_packed.shape == (512, 5) and ints_equal and sim_err <= SIM_ATOL,
+          "dual packed candidates differ from the JAX golden")
+    check_pose(dual_poses, dual_ref, "dual", 6)
+    check_vsd(dual_poses[0], dual_ref["vsd"], "dual", 6)
+    dual_add = score_add(verts, gt, dual_poses[0])
+    check(abs(dual_add - float(dual_ref["add"])) <= SCORE_ATOL, "dual: ADD differs from JAX's")
+
+    program = frame_program(det_dual)
+    dual_cut_launches = {}
+    for label, over in (("prefiltered", dict(prefilter_sel=1024, scan_chunk=4096)),
+                        ("streaming", dict(scan_chunk=512))):
+        st = dataclasses.replace(dual_state, cfg=dataclasses.replace(dual_cfg, **over))
+        sc.coarse_scores.launches = sc.coarse_max.launches = 0
+        got = program(st).cpu().numpy()
+        dual_cut_launches[label] = (sc.coarse_max.launches, sc.coarse_scores.launches)
+        if label == "prefiltered":
+            check(got.shape == (513, 5) and got[-1, 0] == 1.0, "the dual prefiltered cut was not proved exact")
+            got = got[:-1]
+        check(np.array_equal(got, dual_packed), f"the dual {label} cut differs from the dense cut")
+    maxes = _template_maxes(dual_state, dual_coarse_p).cpu().numpy()
+    phase(6, f"the forced prefiltered (cut_exact 1) and streaming cuts give the dense packed [512, 5] exactly; "
+             f"(coarse_max, coarse_scores) launches: {dual_cut_launches}; kernel plans built {len(plans_built)}; "
+             f"template maxes {list(maxes.shape)} equal the golden's: {np.array_equal(maxes, dual_ref['maxes'])}")
+    check(dual_cut_launches == {"prefiltered": (1, 1), "streaming": (0, dn // 512)}, "the dual cuts' launches")
+    check(not plans_built, "a dual path built a kernel plan")
+    check(np.array_equal(maxes, dual_ref["maxes"]), "dual template maxes differ from the JAX golden")
+    sc.coarse_max_plan = matching_mod.coarse_max_plan = build_plan
+
+    # a saturated dual bank: 64 copies of one fixture template, threshold 0
+    dsat_bank = dataclasses.replace(dual_bank)
+    for name in ("feat0", "valid0", "feat1", "valid1", "nfeat0", "nvalid0", "nfeat1", "nvalid1",
+                 "bbox", "quat", "z", "median_depth", "hull"):
+        setattr(dsat_bank, name, getattr(dual_bank, name)[np.full(64, 700)])
+    dsat_settings = TemplateSettings(detector_threshold=0.0, use_depth_improvement=False, only_color_modality=False)
+    dsat_cfg = dataclasses.replace(make_match_config(sat_cam, dsat_settings, 64, dual_modality=True),
+                                   prefilter_sel=20, top_k=16, scan_chunk=16)
+    det_dsat = PoseDetection(dsat_bank, sat_cam, dsat_settings, ModelProperties(), dev, cfg=dsat_cfg)
+    dsat_depth = np.random.default_rng(1).uniform(500, 700, (240, 320)).astype(np.uint16)
+    dsat_packed = det_dsat.detect_submit(sat_color, dsat_depth)[0].cpu().numpy()
+    resolved = resolve_prefilter_packed(dsat_packed, det_dsat, sat_color, dsat_depth)
+    streaming = detect_frame(det_dsat.exact_state, *det_dsat.upload(sat_color, dsat_depth)).cpu().numpy()
+    phase(6, f"saturated dual bank: cut_exact {dsat_packed[-1, 0]:.0f}, retries {det_dsat.retries}, result "
+             f"equals the streaming cut's: {np.array_equal(resolved, streaming)}, {int(streaming[:, 4].sum())} valid")
+    check(dsat_packed[-1, 0] == 0.0 and det_dsat.retries == 1 and np.array_equal(resolved, streaming),
+          "the saturated dual frame was not retried on the streaming cut")
+
+    dual_med = request_times(det_dual, REPS)
+    phase(6, f"{REPS} dual detect calls: detect_frame_dual device {dual_med['device']:.3f} ms, host post "
+             f"{dual_med['post']:.3f} ms, whole detect {dual_med['detect']:.3f} ms (medians; {card})")
+    report_profile(6, "dual path", det_dual, dual_med["device"])
+
+    # -- phase 7: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -662,31 +878,41 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(6, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(7, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 7: results
+    # -- phase 8: results
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
                 "device_ms": k_t[1], "plain_ms": p_t[0], "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": None if lib_t is None else lib_t[0]}
 
+    def dual(name, n_launches):
+        """The kernel at the dual fixture's shapes; `launches` counts a dual
+        frame's (the dense cut: the masked max runs only when forced)."""
+        (k_t, p_t), bnd = dual_times[name], dual_bounds[name]
+        return {"launches": n_launches, "max_abs_err": dual_err[name], "ms": k_t[0], "device_ms": k_t[1],
+                "plain_ms": p_t[0], "bound_ms": bnd[0], "bound_by": bnd[1]}
+
     pallas = "linemod_tpu/ops/similarity_pallas.py"
     p1_bound = bound(2 * x.numel(), 0)
     kernels = [
-        entry("coarse_scores", "similarity.cu", f"{pallas}:76", launches["coarse"], err_c,
-              *times["coarse"], bounds["coarse"], library["coarse"]),
-        entry("fine_scores", "similarity.cu", f"{pallas}:261", launches["fine"], err_f,
-              *times["fine"], bounds["fine"], library["fine"]),
-        entry("coarse_max", "similarity.cu", f"{pallas}:159", big_launches["coarse_max"], max(err_m, err_bm),
-              *max_times, bounds["coarse_max"], None),
-        entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:22",
+        {**entry("coarse_scores", "similarity.cu", f"{pallas}:77", launches["coarse"], max(err_c, dual_err["coarse"]),
+                 *times["coarse"], bounds["coarse"], library["coarse"]),
+         "dual": dual("coarse", dual_launches["coarse"])},
+        {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
+                 *times["fine"], bounds["fine"], library["fine"]),
+         "dual": dual("fine", dual_launches["fine"])},
+        {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
+                 max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
+         "dual": dual("coarse_max", dual_launches["coarse_max"])},
+        entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),
-        entry("bitcast_i32_to_u8", "probes.cu", "scripts/test_bitcast.py:22",
+        entry("bitcast_i32_to_u8", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_i32_to_u8"], err_p1, *probe_ms["bitcast_i32_to_u8"][:2], p1_bound,
               probe_ms["bitcast_i32_to_u8"][2]),
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,

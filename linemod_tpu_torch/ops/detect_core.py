@@ -4,7 +4,8 @@
 state's device and returns one small packed array, so the host copies one
 [top_k, 5] float32 tensor back per frame. The color and depth checks run on
 the host afterwards (ops/postprocess.py), so in color-only mode
-the depth image never goes to the device.
+the depth image never goes to the device; in dual-modality mode the depth
+normals take part in the match, and it does.
 """
 
 from __future__ import annotations
@@ -36,10 +37,17 @@ def _pack(m: dict) -> torch.Tensor:
     return out
 
 
-def detect_frame(state: MatchState, color: torch.Tensor) -> torch.Tensor:
-    """Color-only per-frame program.
+def detect_frame(state: MatchState, color: torch.Tensor, depth: torch.Tensor | None = None) -> torch.Tensor:
+    """The per-frame program.
 
-    color: [H, W, 3] uint8 BGR, principal-point recentred, on the state's
-    device. Returns the packed [top_k, 5] float32 candidates, sorted by
-    similarity ([top_k + 1, 5] on the prefiltered cut)."""
-    return _pack(match_templates(state, color.float()))
+    color: [H, W, 3] uint8 BGR; depth: [H, W] float32 mm, needed by a
+    dual-modality state (color gradients and depth normals) and ignored by
+    a color-only one; both principal-point recentred, on the state's device.
+    Returns the packed [top_k, 5] float32 candidates, sorted by similarity
+    ([top_k + 1, 5] on the prefiltered cut)."""
+    return _pack(match_templates(state, color.float(), None if depth is None else depth.float()))
+
+
+def detect_frame_dual(state: MatchState, color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """detect_frame of a dual-modality state (the reference's entry name)."""
+    return detect_frame(state, color, depth)

@@ -1,5 +1,5 @@
 """Detect-time template matching: the coarse-to-fine pyramid scan
-(counterpart of `linemod_tpu/ops/matching.py`, color-only).
+(counterpart of `linemod_tpu/ops/matching.py`).
 
 - the whole bank is scored at the coarse level (half resolution, T=8
   spreading): every template at every coarse grid cell, by the
@@ -21,9 +21,16 @@
 - similarity = 100 * raw / (4 * num_features); matches are kept when both
   levels reach the detector threshold.
 
+In dual-modality mode (`MatchConfig.dual_modality`: color gradients and
+depth normals, T=5/8) each level's planes are the color planes, then the
+normal planes, then the zero plane, and a template's features of both
+modalities ride in one table, the normal ones on planes offset past the
+color planes.
+
 The outputs equal the JAX reference's: integers exactly, similarities bit
 for bit (the percent scale is computed in the same float32 order). Not
-ported yet: dual modality and the approximate and guarded cuts.
+ported: the approximate and guarded cuts (opt-ins the reference leaves
+off).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from .extract import downsample2
 from .gradients import quantize_color_gradients
+from .normals import quantize_normals
 from .similarity_cuda import (
     CoarseMaxPlan,
     coarse_max,
@@ -105,12 +113,17 @@ def takes_prefilter(cfg: MatchConfig, n: int) -> bool:
     return bool(cfg.prefilter_sel) and n > max(cfg.prefilter_sel, cfg.top_k)
 
 
-def _level_offsets(feats, valids, t, rows, stride, zero_base):
+def _level_offsets(feats, valids, t, rows, stride, plane_base, zero_base):
     xs = feats[:, :, 0].astype(np.int64)
     ys = feats[:, :, 1].astype(np.int64)
     oris = feats[:, :, 2].astype(np.int64)
-    off = feature_flat_offsets(xs, ys, oris, t, rows, stride)
+    off = feature_flat_offsets(xs, ys, oris, t, rows, stride) + plane_base
     return np.where(valids, off, zero_base).astype(np.int32)
+
+
+def _n_planes(cfg: MatchConfig, t: int) -> int:
+    """Response planes of one level, both modalities, without the zero plane."""
+    return (2 if cfg.dual_modality else 1) * 8 * t * t
 
 
 def _check_triplets(off3: np.ndarray, shape: tuple, n_planes: int, level: str) -> None:
@@ -136,19 +149,18 @@ def match_state_from_numpy(arrays: dict, meta: dict, device) -> MatchState:
     cfg = meta["cfg"]
     if not isinstance(cfg, MatchConfig):
         cfg = MatchConfig(**{f.name: cfg[f.name] for f in dataclasses.fields(MatchConfig)})
-    if cfg.dual_modality:
-        raise NotImplementedError("dual-modality matching is not ported yet")
     host = {k: np.array(arrays[k], order="C") for k in TENSOR_FIELDS}
     for k, a in host.items():
         if a.dtype != np.int32:
             raise ValueError(f"{k} must be int32, got {a.dtype}")
     fine_shape = tuple(int(v) for v in meta["fine_shape"])
     coarse_shape = tuple(int(v) for v in meta["coarse_shape"])
-    _check_triplets(host["off3_coarse"], coarse_shape, 8 * cfg.t_coarse**2, "coarse")
-    _check_triplets(host["off3_fine"], fine_shape, 8 * cfg.t_fine**2, "fine")
+    n_planes_c = _n_planes(cfg, cfg.t_coarse)
+    _check_triplets(host["off3_coarse"], coarse_shape, n_planes_c, "coarse")
+    _check_triplets(host["off3_fine"], fine_shape, _n_planes(cfg, cfg.t_fine), "fine")
     tensors = {k: torch.as_tensor(a, device=device) for k, a in host.items()}
     ch, cw, rows, stride = coarse_shape
-    plan = coarse_max_plan(tensors["off3_coarse"], (8 * cfg.t_coarse**2 + 1, rows, stride), ch, cw)
+    plan = coarse_max_plan(tensors["off3_coarse"], (n_planes_c + 1, rows, stride), ch, cw)
     return MatchState(
         cfg=cfg,
         n_templates=int(meta["n_templates"]),
@@ -162,9 +174,13 @@ def match_state_from_numpy(arrays: dict, meta: dict, device) -> MatchState:
 
 
 def build_match_state(bank, cfg: MatchConfig, device) -> MatchState:
-    """Per-template plane offsets and triplets from a (padded) TemplateBank."""
-    if cfg.dual_modality or bank.dual_modality:
-        raise NotImplementedError("dual-modality matching is not ported yet")
+    """Per-template plane offsets and triplets from a (padded) TemplateBank.
+    The bank's modality must be the config's."""
+    if cfg.dual_modality != bank.dual_modality:
+        raise ValueError(
+            f"a {'dual' if bank.dual_modality else 'color-only'} bank needs a config with "
+            f"dual_modality={bank.dual_modality}"
+        )
     n = bank.num_templates
     bw = bank.bbox[:, 2]
     bh = bank.bbox[:, 3]
@@ -174,26 +190,43 @@ def build_match_state(bank, cfg: MatchConfig, device) -> MatchState:
     coarse = linear_plane_shape(cfg.height // 2, cfg.width // 2, cfg.t_coarse, mc_coarse)
     ch, cw, rows_c, stride_c = coarse
     _, _, rows_f, stride_f = fine
-    n_planes_f = 8 * cfg.t_fine * cfg.t_fine
-    n_planes_c = 8 * cfg.t_coarse * cfg.t_coarse
+    # one modality's planes at each level; the zero plane follows all of them
+    mod_f = 8 * cfg.t_fine * cfg.t_fine
+    mod_c = 8 * cfg.t_coarse * cfg.t_coarse
+    zero_f, zero_c = _n_planes(cfg, cfg.t_fine), _n_planes(cfg, cfg.t_coarse)
+    mods = [(bank.feat0, bank.valid0, bank.feat1, bank.valid1)]
+    if cfg.dual_modality:
+        mods.append((bank.nfeat0, bank.nvalid0, bank.nfeat1, bank.nvalid1))
+    offs_f, offs_c, trips_f, trips_c = [], [], [], []
+    for m, (f0, v0, f1, v1) in enumerate(mods):
+        offs_f.append(_level_offsets(
+            f0, v0, cfg.t_fine, rows_f, stride_f, m * mod_f * rows_f * stride_f,
+            zero_f * rows_f * stride_f,
+        ))
+        offs_c.append(_level_offsets(
+            f1, v1, cfg.t_coarse, rows_c, stride_c, m * mod_c * rows_c * stride_c,
+            zero_c * rows_c * stride_c,
+        ))
+        # a valid feature of modality m lies on its plane past m modalities'
+        for trips, f, v, t, per_mod, zero in (
+            (trips_f, f0, v0, cfg.t_fine, mod_f, zero_f),
+            (trips_c, f1, v1, cfg.t_coarse, mod_c, zero_c),
+        ):
+            tr = feature_plane_triplets(f, v, t, zero)
+            tr[:, :, 0] = np.where(v, tr[:, :, 0] + m * per_mod, tr[:, :, 0])
+            trips.append(tr)
     # coarse-cell bounds where the template still fits in the image
     gy_lim = ch - np.ceil(bh / 2 / cfg.t_coarse).astype(np.int64)
     gx_lim = cw - np.ceil(bw / 2 / cfg.t_coarse).astype(np.int64)
     arrays = {
-        "off_fine": _level_offsets(
-            bank.feat0, bank.valid0, cfg.t_fine, rows_f, stride_f,
-            n_planes_f * rows_f * stride_f,
-        ),
-        "off_coarse": _level_offsets(
-            bank.feat1, bank.valid1, cfg.t_coarse, rows_c, stride_c,
-            n_planes_c * rows_c * stride_c,
-        ),
+        "off_fine": np.concatenate(offs_f, axis=1),
+        "off_coarse": np.concatenate(offs_c, axis=1),
         # inert (padding) templates have no features: clamp to avoid 0-division
-        "nf_fine": np.maximum(bank.valid0.sum(1), 1).astype(np.int32),
-        "nf_coarse": np.maximum(bank.valid1.sum(1), 1).astype(np.int32),
+        "nf_fine": np.maximum(sum(m[1].sum(1) for m in mods), 1).astype(np.int32),
+        "nf_coarse": np.maximum(sum(m[3].sum(1) for m in mods), 1).astype(np.int32),
         "lim_coarse": np.stack([gy_lim, gx_lim], axis=1).astype(np.int32),
-        "off3_coarse": feature_plane_triplets(bank.feat1, bank.valid1, cfg.t_coarse, n_planes_c),
-        "off3_fine": feature_plane_triplets(bank.feat0, bank.valid0, cfg.t_fine, n_planes_f),
+        "off3_coarse": np.concatenate(trips_c, axis=1),
+        "off3_fine": np.concatenate(trips_f, axis=1),
     }
     meta = {
         "cfg": cfg, "n_templates": n, "fine_shape": fine, "coarse_shape": coarse,
@@ -218,20 +251,32 @@ def _planes_from_quant(quants, t: int, max_cells: int) -> torch.Tensor:
     return torch.cat(planes, dim=0)
 
 
-def _planes_3d(color: torch.Tensor, t: int, max_cells: int) -> torch.Tensor:
-    """Quantize one pyramid level (color modality) -> its linearized planes."""
-    return _planes_from_quant([quantize_color_gradients(color)[0]], t, max_cells)
+def _planes_3d(color: torch.Tensor, t: int, max_cells: int, depth=None) -> torch.Tensor:
+    """Quantize one pyramid level -> its linearized planes: the color
+    modality's, then (given the depth, in dual mode) the normal modality's."""
+    quants = [quantize_color_gradients(color)[0]]
+    if depth is not None:
+        quants.append(quantize_normals(depth)[0])
+    return _planes_from_quant(quants, t, max_cells)
 
 
-def match_templates(state: MatchState, color: torch.Tensor) -> dict:
+def match_templates(state: MatchState, color: torch.Tensor, depth=None) -> dict:
     """Coarse-to-fine match of the whole bank against one frame.
 
-    color: [H, W, 3] float 0..255 BGR, on the state's device. Returns a dict
-    of [top_k] tensors (template_id, x, y: level-0 bbox top-left pixels,
-    similarity in percent, valid), sorted by similarity descending."""
+    color: [H, W, 3] float 0..255 BGR; depth: [H, W] float mm, needed in
+    dual mode and ignored otherwise; both on the state's device. Returns a
+    dict of [top_k] tensors (template_id, x, y: level-0 bbox top-left
+    pixels, similarity in percent, valid), sorted by similarity descending."""
     cfg = state.cfg
-    fine_planes = _planes_3d(color, cfg.t_fine, state.max_cells_fine)
-    coarse_planes = _planes_3d(downsample2(color), cfg.t_coarse, state.max_cells_coarse)
+    if cfg.dual_modality and depth is None:
+        raise ValueError("dual-modality matching needs the depth image")
+    depth = depth if cfg.dual_modality else None
+    fine_planes = _planes_3d(color, cfg.t_fine, state.max_cells_fine, depth)
+    # the coarse level's depth is strided, not averaged
+    coarse_planes = _planes_3d(
+        downsample2(color), cfg.t_coarse, state.max_cells_coarse,
+        None if depth is None else depth[::2, ::2],
+    )
     return _match_with_planes(state, fine_planes, coarse_planes)
 
 

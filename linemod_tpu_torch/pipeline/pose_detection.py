@@ -9,10 +9,14 @@ Banks above 8,192 templates take the prefiltered exact cut; a frame whose
 cut cannot prove itself exact is re-run on the streaming exact cut
 (`resolve_prefilter_packed`).
 
+A dual-modality bank (color gradients and depth normals, T=5/8) uploads
+the recentred depth with the color, and the program matches both.
+
 `detect_submit` launches the device work without waiting for it and
 `detect_collect` waits for it, so a caller can prepare the next frame while
-the card works. Not ported yet: dual modality, ICP refinement,
-`detect_stream` and batched frames.
+the card works. Not ported yet: ICP refinement, `detect_stream` and batched
+frames; left out: the reference's delta-encoded and host-quantized uploads,
+which serve a remote TPU link.
 """
 
 from __future__ import annotations
@@ -39,38 +43,44 @@ from ..ops.postprocess import (
 BIG_BANK_TEMPLATES = 8192
 
 
-def resolve_prefilter_packed(packed: np.ndarray, owner, color_c: np.ndarray) -> np.ndarray:
+def resolve_prefilter_packed(
+    packed: np.ndarray, owner, color_c: np.ndarray, depth_c: np.ndarray | None = None
+) -> np.ndarray:
     """Handle the prefiltered cut's proof row (detect_core._pack appends it):
     slice it off, and re-run a frame whose cut is not proved exact on the
     exact streaming cut (`owner.exact_state`), on the same device.
 
-    owner: a PoseDetection; color_c: the recentred frame (host uint8)."""
+    owner: a PoseDetection; color_c, depth_c: the recentred frame (host
+    arrays; the depth is needed, and used, only in dual mode)."""
     top_k = owner.state.cfg.top_k
     if packed.shape[0] != top_k + 1:
         return packed
     if packed[-1, 0] < 0.5:
-        frame = torch.from_numpy(np.ascontiguousarray(color_c, dtype=np.uint8)).to(owner.device)
-        packed = detect_frame(owner.exact_state, frame).cpu().numpy()
+        packed = detect_frame(owner.exact_state, *owner.upload(color_c, depth_c)).cpu().numpy()
         owner.retries += 1
     return packed[:top_k]
 
 
 def make_match_config(
-    cam: CameraParameters, settings: TemplateSettings, n_templates: int
+    cam: CameraParameters, settings: TemplateSettings, n_templates: int,
+    dual_modality: bool = False,
 ) -> MatchConfig:
-    """The production color-only MatchConfig: the T=2/8 pyramid, the
-    detector threshold from the settings, top-512 candidates, and the bank
-    padded to a multiple of min(256, next power of two of its size). Banks
-    above 8,192 templates (the reference's settings configure 96,300) take
-    the prefiltered cut over the best max(2 * top_k, 1024) templates, with
-    the 4,096-template streaming cut kept for retries."""
+    """The production MatchConfig: the T=2/8 pyramid (T=5/8 with
+    `dual_modality`, color gradients and depth normals), the detector
+    threshold from the settings, top-512 candidates, and the bank padded to
+    a multiple of min(256, next power of two of its size). Banks above 8,192
+    templates (the reference's settings configure 96,300) take the
+    prefiltered cut over the best max(2 * top_k, 1024) templates, with the
+    4,096-template streaming cut kept for retries."""
     top_k = 512
     big_bank = n_templates > BIG_BANK_TEMPLATES
     return MatchConfig(
         width=cam.width,
         height=cam.height,
+        t_fine=5 if dual_modality else 2,
         top_k=top_k,
         threshold=settings.detector_threshold,
+        dual_modality=dual_modality,
         template_chunk=min(256, _pad_chunk(n_templates)),
         scan_chunk=4096 if big_bank else 0,
         prefilter_sel=max(2 * top_k, 1024) if big_bank else 0,
@@ -94,15 +104,13 @@ class PoseDetection:
         device,
         cfg: MatchConfig | None = None,
     ):
-        if bank.dual_modality:
-            raise NotImplementedError("dual-modality detection is not ported yet")
         self.bank = bank
         self.cam = cam
         self.settings = settings
         self.props = props
         self.device = torch.device(device)
         if cfg is None:
-            cfg = make_match_config(cam, settings, bank.num_templates)
+            cfg = make_match_config(cam, settings, bank.num_templates, bank.dual_modality)
         self.state = build_match_state(_pad_bank(bank, cfg.template_chunk), cfg, self.device)
         self.exact_state = None
         if cfg.prefilter_sel:
@@ -126,6 +134,16 @@ class PoseDetection:
         out[dy0 : dy0 + hh, dx0 : dx0 + ww] = img[sy0 : sy0 + hh, sx0 : sx0 + ww]
         return out
 
+    def upload(self, color_c: np.ndarray, depth_c) -> tuple:
+        """(color, depth) of one recentred frame on the device, the
+        program's inputs: color as uint8; with a dual bank the depth as
+        float32, converted on the host (torch's uint16 support is thin),
+        else None (the depth stays on the host)."""
+        frame = torch.from_numpy(np.ascontiguousarray(color_c, dtype=np.uint8)).to(self.device)
+        if not self.state.cfg.dual_modality:
+            return frame, None
+        return frame, torch.from_numpy(np.ascontiguousarray(depth_c, dtype=np.float32)).to(self.device)
+
     def detect(self, color: np.ndarray, depth: np.ndarray, num_objects: int = 1) -> list:
         """Detect up to num_objects poses in one RGB-D frame (synchronous).
 
@@ -134,20 +152,20 @@ class PoseDetection:
         return self.detect_collect(self.detect_submit(color, depth), num_objects)
 
     def detect_submit(self, color: np.ndarray, depth: np.ndarray):
-        """Upload the recentred color frame and launch the match program
-        without waiting for it; returns the handle for detect_collect. The
-        depth image stays on the host, where the checks read it."""
+        """Upload the recentred frame and launch the match program without
+        waiting for it; returns the handle for detect_collect. In color-only
+        mode the depth image stays on the host, where the checks read it; a
+        dual bank uploads it too."""
         color_c = self.recenter(np.ascontiguousarray(color))
         depth_c = self.recenter(np.ascontiguousarray(depth))
-        frame = torch.from_numpy(np.ascontiguousarray(color_c, dtype=np.uint8)).to(self.device)
-        return detect_frame(self.state, frame), color_c, depth_c
+        return detect_frame(self.state, *self.upload(color_c, depth_c)), color_c, depth_c
 
     def detect_collect(self, handle, num_objects: int = 1) -> list:
         """Wait for one submitted frame, copy its packed candidates to the
         host, and run grouping, the checks and the pose math there. A frame
         whose prefiltered cut is not proved exact is re-run first."""
         packed, color_c, depth_c = handle
-        packed = resolve_prefilter_packed(packed.cpu().numpy(), self, color_c)
+        packed = resolve_prefilter_packed(packed.cpu().numpy(), self, color_c, depth_c)
         valid = packed[:, 4] > 0.5
         tid = packed[valid, 0].astype(np.int64)
         xs = packed[valid, 1]

@@ -1,7 +1,7 @@
 """Pose math on the host (numpy): quaternions and the view-ray rotation.
 
 The port's own copy of the parts of `linemod_tpu/utils/geometry.py` that
-detection uses. Conventions follow GLM, as the reference's template poses
+detection and scoring use. Conventions follow GLM, as the reference's template poses
 do: `look_at` is glm::lookAt (right-handed, the camera looks down -z in its
 own frame) and quaternions are (w, x, y, z), normalized.
 """
@@ -30,6 +30,21 @@ def look_at(eye, center, up) -> np.ndarray:
     m[1, 3] = -u @ eye
     m[2, 3] = f @ eye
     return m
+
+
+def rotation_about_axis(axis, angle_rad: float) -> np.ndarray:
+    """Rodrigues rotation matrix about a (normalized) axis."""
+    x, y, z = normalize(axis)
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    C = 1.0 - c
+    return np.array(
+        [
+            [c + x * x * C, x * y * C - z * s, x * z * C + y * s],
+            [y * x * C + z * s, c + y * y * C, y * z * C - x * s],
+            [z * x * C - y * s, z * y * C + x * s, c + z * z * C],
+        ],
+        dtype=np.float64,
+    )
 
 
 def mat_to_quat(m: np.ndarray) -> np.ndarray:

@@ -154,8 +154,10 @@ def test_match_program_rejects_wrong_frame_size(synthetic_detectors):
 
 
 def test_dual_modality_is_refused():
+    """A dual-modality config on a color-only bank (no normal features) is
+    refused; the dual path itself is tests/test_torch_dual.py's."""
     from linemod_tpu_torch.models.template_bank import make_synthetic_bank
     from linemod_tpu_torch.ops.matching import MatchConfig, build_match_state
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         build_match_state(make_synthetic_bank(4), MatchConfig(dual_modality=True), "cpu")
