@@ -71,11 +71,33 @@ Drives the port's paths on the card and checks them, in phases:
    (`scan_chunk` 512) gives the dense packed array; the template maxes
    equal the golden's; a saturated dual bank is retried with its depth.
    Times: 20 dual detect calls and a profile, as in phase 4;
-7. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+7. ICP on (`use icp: 1`, an IcpRefiner at the settings' sample step 2, the
+   7,168-point model cloud): the fixture through `PoseDetection` on the
+   card. The scan kernels were launched once each and the frame renders
+   once; the pre-ICP groups and DetectionDebug counters equal JAX's, the
+   scene cloud equals tests/goldens/img0_icp_ref.npz bit for bit, one ICP
+   iteration is within 5e-4 mm / 5e-6 of JAX's, and the pose is within 0.5
+   mm / 0.02 (rotation-matrix entries) of the nearest of the reference's
+   poses from starts one and two ulps away (the reference's ICP is chaotic
+   at the float32 level), with 10 < dz < 70 mm against the ICP-off pose and
+   verify <= 35 mm. With TF32 allowed the result is the same bit for bit.
+   The four stress starts of tests/test_icp_stress.py on the card's render
+   converge (dt < 10 mm, ADD-S < 10 mm, verify <= 35 mm). Times: 20 ICP-on
+   detect calls, the ICP leg split into scene cloud, 16 iterations and the
+   verify render, and a profile of the leg;
+8. two classes in one bank: the fixture bank and make_synthetic_bank(1950,
+   seed=11, bbox_wh=64), 3,900 templates padded to 4,096, top_k 1,024. The
+   packed [1024, 5] equals tests/goldens/img0_multi_ref.npz, the fixture
+   class's pose equals JAX's (and whether it equals the single-class pose
+   is printed), detect_all_stream over 3 frames equals detect_all, 2.1 at
+   N = 4,096 and 2.2 at K = 1,024 equal their plain versions (times and
+   bounds), and 20 detect_all calls are timed;
+9. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-8. a JSON line of per-kernel results (with `device_ms`, and the dual
-   shapes' numbers under `dual` for the three scan kernels), then the result
-   line {"ok": true, "device": {...}} last.
+10. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+   numbers under `dual`, the ICP path's launches under `icp` and the
+   two-class shapes' numbers under `multi`), then the result line
+   {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -102,6 +124,8 @@ GOLDEN = os.path.join(REPO, "tests", "goldens", "img0_golden.npz")
 TORCH_REF = os.path.join(REPO, "tests", "goldens", "img0_torch_ref.npz")
 BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
 DUAL_REF = os.path.join(REPO, "tests", "goldens", "img0_dual_ref.npz")
+ICP_REF = os.path.join(REPO, "tests", "goldens", "img0_icp_ref.npz")
+MULTI_REF = os.path.join(REPO, "tests", "goldens", "img0_multi_ref.npz")
 REPS = 20
 # calls a kernel's time is taken over (its plain version's, where slow)
 LAUNCHES = 50
@@ -115,6 +139,14 @@ SIM_ATOL = 1e-4
 SCORE_ATOL = 1e-3
 RENDER_COVERAGE = 1e-3
 RENDER_ATOL_MM = 1e-2
+# ICP against the JAX golden (tests/test_torch_icp_fixture.py): one
+# iteration within a few ulps; the 16-iteration pose within these limits of
+# the nearest of the reference's poses from starts one and two ulps away
+# (the reference's ICP is chaotic at the float32 level)
+ICP_ONE_ITER_MM = 5e-4
+ICP_ONE_ITER_ROT = 5e-6
+ICP_ENVELOPE_MM = 0.5
+ICP_ENVELOPE_ROT = 0.02
 # the least-time bound: device memory at 3.35 TB/s (H100 SXM data sheet,
 # 700 W), and int32 adds at the INT32 rate: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x 1,980 MHz boost (data sheet) =
@@ -153,6 +185,20 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = REPS) -> tuple:
+    """(median, min) ms of one fn() call on the host's clock around
+    synchronised work, over `reps` calls after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_start) * 1e3)
+    return statistics.median(times), min(times)
 
 
 def kernel_times(fn, reps: int = LAUNCHES) -> tuple:
@@ -217,6 +263,249 @@ def profile_frames(fn, frames: int = 5) -> tuple[float, float, list]:
     count = sum(e.count for e in ops) / frames
     top = sorted(((e.key[:60], self_ms(e) / frames) for e in ops), key=lambda t: -t[1])[:5]
     return busy, count, top
+
+
+def icp_phase(dev, card: str, cam, settings, bank, props, color, depth) -> dict:
+    """Phase 7: the fixture with ICP on (the 1,950 bank, sample step 2) on
+    the card, against tests/goldens/img0_icp_ref.npz. Returns the path's
+    scan launches."""
+    from linemod_tpu_torch.ops import icp as icp_mod
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.ops.depth3d import scene_cloud_from_depth
+    from linemod_tpu_torch.ops.icp import VERIFY_ACCEPT_MM, IcpRefiner, icp_refine_batch, verify_mean_depth_diff
+    from linemod_tpu_torch.ops.metrics import adds_error
+    from linemod_tpu_torch.ops.rasterizer import mesh_to_arrays, render
+    from linemod_tpu_torch.pipeline.pose_detection import DetectionDebug, PoseDetection
+    from linemod_tpu_torch.types import ObjectPose
+    from linemod_tpu_torch.utils.geometry import mat_to_quat, rotation_about_axis
+    from linemod_tpu_torch.utils.ply import load_ply
+
+    ref = np.load(ICP_REF)
+    mesh = load_ply(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
+    marr = mesh_to_arrays(mesh, dev)
+    icp = IcpRefiner(mesh, cam, settings.icp_subsampling_factor, mesh_arrays=marr)
+    det = PoseDetection(bank, cam, dataclasses.replace(settings, use_icp=True), props, dev, mesh=mesh, icp=icp)
+    check(tuple(icp.model_pts.shape) == (7168, 3), "the model cloud's size")
+
+    renders = []
+    render_fn = icp_mod.render
+
+    def counting_render(*args, **kwargs):
+        renders.append(1)
+        return render_fn(*args, **kwargs)
+
+    icp_mod.render = counting_render
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    dbg = DetectionDebug()
+    handle = det.detect_submit(color, depth)
+    grouped, icp_handle = det._collect_phase1(handle, dbg)
+    packed = icp_handle[0].cpu().numpy()
+    poses = det._collect_phase2((grouped, icp_handle), 1)
+    launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches,
+                "coarse_max": sc.coarse_max.launches}
+    icp_mod.render = render_fn
+    phase(7, f"ICP path launches: coarse_scores {launches['coarse']}, fine_scores {launches['fine']}, "
+             f"coarse_max {launches['coarse_max']}; renders a frame {len(renders)}; groups "
+             f"{[len(g) for g in grouped]}; debug: {dbg.num_raw_matches} valid, {dbg.num_groups} groups, "
+             f"{dbg.groups_kept} kept")
+    check(launches == {"coarse": 1, "fine": 1, "coarse_max": 0}, "the ICP path's kernel launches")
+    check([dbg.num_raw_matches, dbg.num_groups, dbg.groups_kept] == ref["debug_counts"].tolist(),
+          "DetectionDebug differs from JAX's")
+    check(np.array_equal(np.array([[p.translation for p in g] for g in grouped]), ref["pre_translation"]),
+          "the pre-ICP groups differ from JAX's")
+
+    # the scene cloud bit for bit, one ICP iteration within a few ulps
+    depth_c = det.recenter(np.ascontiguousarray(depth))
+    depth_t = torch.from_numpy(depth_c.astype(np.float32)).to(dev)
+    first = grouped[0][0]
+    cloud = scene_cloud_from_depth(depth_t, first.bounding_box, fx=cam.fx, fy=cam.fy,
+                                   cx=cam.width / 2.0, cy=cam.height / 2.0)
+    cloud_diff = [int((a.cpu().numpy() != ref[k]).any(axis=-1).sum() if a.dim() > 1 else
+                      (a.cpu().numpy() != ref[k]).sum())
+                  for a, k in zip(cloud, ("cloud_points", "cloud_normals", "cloud_valid"))]
+    r0 = torch.from_numpy(first.rotation_matrix()[None].astype(np.float32)).to(dev)
+    t0 = torch.from_numpy(np.asarray(first.translation, np.float32)[None]).to(dev)
+
+    r1, t1, _ = icp_refine_batch(icp.model_pts, *cloud, r0, t0, iterations=1, model_nrm=icp.model_nrm,
+                                 tolerance=icp.tolerance, rejection_scale=icp.rejection_scale)
+    it_mm = float(np.abs(t1[0].cpu().numpy() - ref["icp1_trans"]).max())
+    it_rot = float(np.abs(r1[0].cpu().numpy() - ref["icp1_rot"]).max())
+    phase(7, f"scene cloud vs JAX: points, normals, valid differing {cloud_diff} of 4096; one ICP iteration "
+             f"vs JAX: max|dt| {it_mm:.3g} mm, max|dR| {it_rot:.3g}")
+    check(cloud_diff == [0, 0, 0], "the card's scene cloud differs from JAX's")
+    check(it_mm <= ICP_ONE_ITER_MM and it_rot <= ICP_ONE_ITER_ROT, "one ICP iteration differs from JAX's")
+
+    # the pose: nearest of the reference's envelope, and the reference's gates
+    check(len(poses) == 1 and packed.shape == (1, 1, 13), "the ICP-on fixture gives one pose")
+    p = poses[0]
+    rot = p.rotation_matrix()
+    gaps = [(float(np.abs(p.translation - e[0, 0, 9:12]).max()), float(np.abs(rot - e[0, 0, :9].reshape(3, 3)).max()))
+            for e in ref["envelope"]]
+    near = min(range(len(gaps)), key=lambda i: max(gaps[i][0] / ICP_ENVELOPE_MM, gaps[i][1] / ICP_ENVELOPE_ROT))
+    base = ref["base_translation"]
+    dz = float(p.translation[2] - base[2])
+    verify = float(packed[0, 0, 12])
+    phase(7, f"ICP pose t={np.round(p.translation, 4).tolist()} mm, verify {verify:.4f} mm (JAX: "
+             f"t={np.round(ref['translation'], 4).tolist()}, verify {ref['packed'][0, 0, 12]:.4f}); gap to JAX's "
+             f"{gaps[0][0]:.4f} mm / {gaps[0][1]:.4g}; nearest envelope pose #{near} {gaps[near][0]:.4f} mm / "
+             f"{gaps[near][1]:.4g} (limits {ICP_ENVELOPE_MM} / {ICP_ENVELOPE_ROT}); dz {dz:.3f} mm vs ICP off")
+    check(gaps[near][0] <= ICP_ENVELOPE_MM and gaps[near][1] <= ICP_ENVELOPE_ROT,
+          "the ICP pose is outside the reference's envelope")
+    check(10 < dz < 70 and abs(p.translation[0] - base[0]) < 15 and abs(p.translation[1] - base[1]) < 15
+          and verify <= VERIFY_ACCEPT_MM, "the ICP pose fails the reference's gates")
+
+    # TF32 allowed: the same pose bit for bit (no product is a matmul)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    packed_tf32 = icp.refine_submit(depth_c, grouped)[0].cpu().numpy()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags[:2]
+    torch.set_float32_matmul_precision(flags[2])
+    phase(7, f"TF32 allowed: packed [G, P, 13] equal to TF32 off bit for bit: {np.array_equal(packed_tf32, packed)}")
+    check(np.array_equal(packed_tf32, packed), "the ICP result depends on TF32")
+
+    # the four stress starts of tests/test_icp_stress.py on the card's render
+    s_cam = dataclasses.replace(cam, fx=1044.87, fy=1045.69, cx=320.0, cy=240.0)
+    s_icp = IcpRefiner(mesh, s_cam, 2, mesh_arrays=marr)
+    gt_rot = rotation_about_axis([1.0, 0.0, 0.0], np.radians(105.0)).astype(np.float32)
+    gt_t = np.array([10.0, 25.0, 620.0], np.float32)
+    s_depth = render(marr, gt_rot, gt_t, s_cam.fx, s_cam.fy, 320.0, 240.0)
+    s_depth_np = s_depth.cpu().numpy()
+    sub = torch.from_numpy(mesh.subsampled_vertices(40)).to(dev)
+    for dz_s, deg in [(50.0, 0.0), (0.0, 15.0), (50.0, 15.0), (-50.0, 10.0)]:
+        pert = rotation_about_axis([0.3, 1.0, 0.2], np.radians(deg)).astype(np.float32)
+        init = ObjectPose(translation=(gt_t + np.array([5.0, -5.0, dz_s])).astype(np.float64),
+                          quaternion=mat_to_quat(pert @ gt_rot), bounding_box=(220, 180, 200, 160))
+        out = s_icp.refine(s_depth_np, [init])[0]
+        r_out = torch.from_numpy(out.rotation_matrix().astype(np.float32)).to(dev)
+        t_out = torch.from_numpy(out.translation.astype(np.float32)).to(dev)
+        dt = float(np.linalg.norm(out.translation - gt_t))
+        adds = float(adds_error(sub, torch.from_numpy(gt_rot).to(dev), torch.from_numpy(gt_t).to(dev), r_out, t_out))
+        ver = float(verify_mean_depth_diff(s_depth, render(marr, r_out, t_out, s_cam.fx, s_cam.fy, 320.0, 240.0)))
+        phase(7, f"stress start dz {dz_s:+.0f} mm, {deg:.0f} deg: dt {dt:.3f} mm, ADD-S {adds:.3f} mm, verify "
+                 f"{ver:.3f} mm")
+        check(dt < 10.0 and adds < 10.0 and ver <= VERIFY_ACCEPT_MM, f"stress start ({dz_s}, {deg}) not converged")
+
+    # times: whole ICP-on detect, and the ICP leg split
+    bbox = first.bounding_box
+    rr, tt, _ = icp_refine_batch(icp.model_pts, *cloud, r0, t0, model_nrm=icp.model_nrm,
+                                 tolerance=icp.tolerance, rejection_scale=icp.rejection_scale)
+    vw = min(icp_mod.VERIFY_WINDOW, cam.width, cam.height)
+    ox = min(max(bbox[0] + bbox[2] // 2 - vw // 2, 0), cam.width - vw)
+    oy = min(max(bbox[1] + bbox[3] // 2 - vw // 2, 0), cam.height - vw)
+    crop = depth_t[oy : oy + vw, ox : ox + vw]
+    ms = {
+        "detect": host_ms(lambda: det.detect(color, depth, 1))[0],
+        "leg": host_ms(lambda: icp.refine_best_many(depth_c, grouped))[0],
+        "cloud": host_ms(lambda: scene_cloud_from_depth(depth_t, bbox, fx=cam.fx, fy=cam.fy,
+                                                        cx=cam.width / 2.0, cy=cam.height / 2.0))[0],
+        "refine": host_ms(lambda: icp_refine_batch(icp.model_pts, *cloud, r0, t0, model_nrm=icp.model_nrm,
+                                                   tolerance=icp.tolerance,
+                                                   rejection_scale=icp.rejection_scale))[0],
+        "verify": host_ms(lambda: icp._verify(rr, tt, crop, (ox, oy), (vw, vw)))[0],
+    }
+    phase(7, f"{REPS} ICP-on detect calls: whole detect {ms['detect']:.3f} ms; the ICP leg (refine_best_many) "
+             f"{ms['leg']:.3f} ms: scene cloud {ms['cloud']:.3f} ms, 16 iterations {ms['refine']:.3f} ms, verify "
+             f"render {ms['verify']:.3f} ms ({len(renders)} render a frame) (medians, host clock around synchronised "
+             f"calls; {card})")
+    busy, count, top = profile_frames(lambda: icp.refine_best_many(depth_c, grouped))
+    phase(7, f"ICP leg profile (torch.profiler, 5 frames): device busy {busy:.3f} ms and {count:.0f} device "
+             f"operations a frame; idle {1 - busy / ms['leg']:.1%} of the {ms['leg']:.3f} ms leg; top: "
+             + ", ".join(f"{name} {t:.3f} ms" for name, t in top))
+    return launches
+
+
+def multi_phase(dev, card: str, cam, settings, bank, props, color, depth, colorf) -> dict:
+    """Phase 8: the fixture class and a synthetic second class in one bank
+    (3,900 templates, padded to 4,096, top_k 1,024), against
+    tests/goldens/img0_multi_ref.npz; kernels 2.1 at N = 4,096 and 2.2 at
+    K = 1,024. Returns the path's launches and the kernels' numbers."""
+    from linemod_tpu_torch.config import ModelProperties
+    from linemod_tpu_torch.models.template_bank import make_synthetic_bank
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.ops.detect_core import detect_frame
+    from linemod_tpu_torch.ops.extract import downsample2
+    from linemod_tpu_torch.ops.matching import _planes_3d, candidate_cut, coarse_similarity
+    from linemod_tpu_torch.pipeline.multi_model import MultiModelPoseDetection
+    from linemod_tpu_torch.tools.fine_time import fine_work
+
+    ref = np.load(MULTI_REF)
+    single = np.load(TORCH_REF)
+    multi = MultiModelPoseDetection(
+        {"lagergehaeuse": bank, "synthetic": make_synthetic_bank(1950, seed=11, bbox_wh=64)}, cam, settings,
+        {"lagergehaeuse": props, "synthetic": ModelProperties()}, dev,
+    )
+    st = multi.state
+    check(st.n_templates == 4096 and st.cfg.top_k == 1024, "the two-class bank's size and top_k")
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    out = multi.detect_all(color, depth, 1)
+    launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches,
+                "coarse_max": sc.coarse_max.launches}
+    phase(8, f"multi-class path launches: coarse_scores {launches['coarse']}, fine_scores {launches['fine']}, "
+             f"coarse_max {launches['coarse_max']}")
+    check(launches == {"coarse": 1, "fine": 1, "coarse_max": 0}, "the multi-class path's kernel launches")
+    packed = detect_frame(st, *multi.upload(multi.recenter(color), None)).cpu().numpy()
+    ints_equal = np.array_equal(packed[:, [0, 1, 2, 4]], ref["packed"][:, [0, 1, 2, 4]])
+    sim_err = float(np.abs(packed[:, 3] - ref["packed"][:, 3]).max())
+    pose = out["lagergehaeuse"][0] if out["lagergehaeuse"] else None
+    phase(8, f"packed {list(packed.shape)} vs JAX golden: ints equal {ints_equal}, max|sim diff| {sim_err:.3g}, "
+             f"{int(packed[:, 4].sum())} valid; poses per class {({c: len(v) for c, v in out.items()})}")
+    check(packed.shape == (1024, 5) and ints_equal and sim_err <= SIM_ATOL,
+          "multi-class packed candidates differ from the JAX golden")
+    check(pose is not None and len(out["synthetic"]) == int(ref["synthetic_poses"][0]), "the classes' pose counts")
+    dt = float(np.abs(pose.translation - ref["translation"]).max())
+    dq = float(np.abs(pose.quaternion - ref["quaternion"]).max())
+    same_single = (np.array_equal(pose.translation, single["translation"])
+                   and np.array_equal(pose.quaternion, single["quaternion"]))
+    phase(8, f"fixture class pose t={np.round(pose.translation, 3).tolist()} mm: max|dt| {dt:.3g} mm, max|dq| "
+             f"{dq:.3g} vs JAX's; equal to the single-class pose: {same_single}")
+    check(dt == 0.0 and dq == 0.0, "the fixture class's pose differs from JAX's")
+    streamed = list(multi.detect_all_stream([(color, depth)] * 3, 1))
+    stream_equal = len(streamed) == 3 and all(
+        {c: [(q.translation.tolist(), q.quaternion.tolist()) for q in v] for c, v in o.items()}
+        == {c: [(q.translation.tolist(), q.quaternion.tolist()) for q in v] for c, v in out.items()}
+        for o in streamed)
+    phase(8, f"detect_all_stream over 3 frames equals detect_all: {stream_equal}")
+    check(stream_equal, "detect_all_stream differs from detect_all")
+
+    # 2.1 at N = 4,096 and 2.2 at K = 1,024, exact against the plain versions
+    coarse_p = _planes_3d(downsample2(colorf), st.cfg.t_coarse, st.max_cells_coarse)
+    fine_p = _planes_3d(colorf, st.cfg.t_fine, st.max_cells_fine)
+    ch, cw = st.coarse_shape[:2]
+    scan_args = (coarse_p, st.off3_coarse, ch, cw)
+    _, cand_t, gy, gx = candidate_cut(coarse_similarity(st, coarse_p), cw, st.cfg.top_k)
+    span = 2 * st.cfg.t_coarse
+    fine_args = (fine_p, st.off3_fine, cand_t.int(),
+                 torch.stack([gy * span // st.cfg.t_fine, gx * span // st.cfg.t_fine], 1).int(),
+                 -(-span // st.cfg.t_fine))
+    err = {"coarse": max_abs_err(sc.coarse_scores(*scan_args, plan=st.coarse_plan), sc.coarse_scores_plain(*scan_args)),
+           "fine": max_abs_err(sc.fine_scores(*fine_args), sc.fine_scores_plain(*fine_args))}
+    times = {"coarse": (kernel_times(lambda: sc.coarse_scores(*scan_args, plan=st.coarse_plan)),
+                        kernel_times(lambda: sc.coarse_scores_plain(*scan_args), PLAIN_LAUNCHES)),
+             "fine": (kernel_times(lambda: sc.fine_scores(*fine_args)),
+                      kernel_times(lambda: sc.fine_scores_plain(*fine_args), PLAIN_LAUNCHES))}
+    n = st.off3_coarse.shape[0]
+    lookups = int((st.off3_coarse[..., 0] < coarse_p.shape[0] - 1).sum().item()) * ch * cw
+    work = fine_work(*fine_args)
+    bounds = {"coarse": bound(nbytes(coarse_p, st.off3_coarse) + 4 * n * ch * cw, lookups / 4),
+              "fine": bound(work["bytes"], work["adds"])}
+    phase(8, "two-class shapes: the kernels and their plain versions")
+    print(f"  coarse_scores: planes {tuple(coarse_p.shape)} x {tuple(st.off3_coarse.shape)} -> [{n}, {ch}, {cw}]: "
+          f"max|kernel-plain| {err['coarse']}; kernel {fmt(times['coarse'][0])}, plain {fmt(times['coarse'][1])}, "
+          f"bound {bounds['coarse'][0]:.6f} ms by {bounds['coarse'][1]} ({lookups} lookups) ({card})")
+    print(f"  fine_scores: planes {tuple(fine_p.shape)} x {tuple(st.off3_fine.shape)}, K={cand_t.shape[0]}, "
+          f"win {fine_args[4]}: max|kernel-plain| {err['fine']}; kernel {fmt(times['fine'][0])}, plain "
+          f"{fmt(times['fine'][1])}, bound {bounds['fine'][0]:.6f} ms by {bounds['fine'][1]} ({work['touched']} "
+          f"distinct plane bytes) ({card})")
+    check(err == {"coarse": 0, "fine": 0} and n == 4096 and cand_t.shape[0] == 1024, "a kernel != plain at the "
+          "two-class shapes")
+
+    med, low = host_ms(lambda: multi.detect_all(color, depth, 1))
+    phase(8, f"{REPS} detect_all calls: median {med:.3f} ms, min {low:.3f} ms (host clock; {card})")
+    return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": times[name][0][0],
+                   "device_ms": times[name][0][1], "plain_ms": times[name][1][0], "bound_ms": bounds[name][0],
+                   "bound_by": bounds[name][1]} for name in ("coarse", "fine")}
 
 
 def main() -> int:
@@ -845,7 +1134,11 @@ def main() -> int:
              f"{dual_med['post']:.3f} ms, whole detect {dual_med['detect']:.3f} ms (medians; {card})")
     report_profile(6, "dual path", det_dual, dual_med["device"])
 
-    # -- phase 7: the probes
+    # -- phases 7 and 8: ICP on, and two classes in one bank
+    icp_launches = icp_phase(dev, card, cam, settings, bank, props, color, depth)
+    multi = multi_phase(dev, card, cam, settings, bank, props, color, depth, colorf)
+
+    # -- phase 9: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -878,12 +1171,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(7, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(9, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 8: results
+    # -- phase 10: results
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
@@ -902,13 +1195,16 @@ def main() -> int:
     kernels = [
         {**entry("coarse_scores", "similarity.cu", f"{pallas}:77", launches["coarse"], max(err_c, dual_err["coarse"]),
                  *times["coarse"], bounds["coarse"], library["coarse"]),
-         "dual": dual("coarse", dual_launches["coarse"])},
+         "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
+         "multi": multi["coarse"]},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
-         "dual": dual("fine", dual_launches["fine"])},
+         "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
+         "multi": multi["fine"]},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
-         "dual": dual("coarse_max", dual_launches["coarse_max"])},
+         "dual": dual("coarse_max", dual_launches["coarse_max"]),
+         "icp": {"launches": icp_launches["coarse_max"]}},
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),

@@ -51,3 +51,12 @@ def detect_frame(state: MatchState, color: torch.Tensor, depth: torch.Tensor | N
 def detect_frame_dual(state: MatchState, color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """detect_frame of a dual-modality state (the reference's entry name)."""
     return detect_frame(state, color, depth)
+
+
+def detect_frames_batch(state: MatchState, colors: torch.Tensor, depths: torch.Tensor | None = None) -> torch.Tensor:
+    """detect_frame of each of B frames: colors [B, H, W, 3] uint8 (depths
+    [B, H, W] float32 for a dual state) -> packed [B, top_k, 5] (one row
+    more on the prefiltered cut), launched together without a host sync."""
+    return torch.stack([
+        detect_frame(state, colors[i], None if depths is None else depths[i]) for i in range(colors.shape[0])
+    ])
