@@ -92,12 +92,25 @@ Drives the port's paths on the card and checks them, in phases:
    is printed), detect_all_stream over 3 frames equals detect_all, 2.1 at
    N = 4,096 and 2.2 at K = 1,024 equal their plain versions (times and
    bounds), and 20 detect_all calls are timed;
-9. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+9. offline template generation on the card (`build_template_bank` with
+   `device=cuda:0`, the shipped settings): the full dual bank (1,950
+   templates) equals example/banks_dual/lagergehaeuse.npz row for row on all
+   13 arrays, and the full color bank's first radius (rows 0-129) equals
+   tests/goldens/gen_color_r500_ref.npz on all 9 (both are JAX's CPU
+   generation); how many of its rows differ from the older committed
+   example/banks is printed. The color bank then drives `PoseDetection`:
+   2.1 and 2.2 launched once each, ADD <= 21 mm and VSD < 0.3; the dual bank
+   gives tests/goldens/img0_dual_ref.npz's packed [512, 5] and pose. Times:
+   seconds a bank, ms a template split into render, quantize, cut, scan and
+   assembly, and one radius's wall time with the device's busy share
+   (torch.profiler);
+10. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-10. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
-   numbers under `dual`, the ICP path's launches under `icp` and the
-   two-class shapes' numbers under `multi`), then the result line
-   {"ok": true, "device": {...}} last.
+11. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+   numbers under `dual`, the ICP path's launches under `icp`, the
+   two-class shapes' numbers under `multi` and the launches of detection
+   with the card's generated color bank under `generated`), then the result
+   line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -126,6 +139,7 @@ BIGBANK_REF = os.path.join(REPO, "tests", "goldens", "img0_bigbank_ref.npz")
 DUAL_REF = os.path.join(REPO, "tests", "goldens", "img0_dual_ref.npz")
 ICP_REF = os.path.join(REPO, "tests", "goldens", "img0_icp_ref.npz")
 MULTI_REF = os.path.join(REPO, "tests", "goldens", "img0_multi_ref.npz")
+GEN_COLOR_REF = os.path.join(REPO, "tests", "goldens", "gen_color_r500_ref.npz")
 REPS = 20
 # calls a kernel's time is taken over (its plain version's, where slow)
 LAUNCHES = 50
@@ -508,6 +522,139 @@ def multi_phase(dev, card: str, cam, settings, bank, props, color, depth, colorf
                    "bound_by": bounds[name][1]} for name in ("coarse", "fine")}
 
 
+def generate_phase(dev, card: str, cam, settings, props, mesh, color, depth) -> dict:
+    """Phase 9: offline template generation on the card. The full dual bank
+    (1,950 templates) against example/banks_dual/lagergehaeuse.npz and the
+    full color bank's first radius against tests/goldens/gen_color_r500_ref.npz,
+    row for row on every array (both are JAX's CPU generation); each bank
+    then drives detection: the color bank launches 2.1 and 2.2 once each and
+    passes ADD and VSD, the dual bank gives tests/goldens/img0_dual_ref.npz's
+    packed [512, 5] and pose. Times: seconds a bank, ms a template split into
+    render, quantize, cut, scan and assembly, and the device's busy share
+    over one radius. Returns the detection's launches."""
+    from linemod_tpu_torch.models.template_bank import DUAL_FIELDS, FIELDS, TIMED_PHASES, build_template_bank
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER, VSD_CORRECT
+    from linemod_tpu_torch.pipeline.benchmark import Benchmark, model_vertices, read_ground_truth_pose, score_add
+    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection
+
+    model = os.path.join(EXAMPLE, "models", "lagergehaeuse.ply")
+    dual_settings = dataclasses.replace(settings, only_color_modality=False)
+    banks, seconds, timings = {}, {}, {}
+    for kind, st in (("dual", dual_settings), ("color", settings)):
+        timings[kind] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        banks[kind] = build_template_bank(mesh, "lagergehaeuse.ply", cam, st, props, dev, timings=timings[kind])
+        seconds[kind] = time.perf_counter() - t0
+
+    def differing_rows(bank, ref, fields, rows):
+        """Per field, the rows (of the first `rows`) whose arrays differ."""
+        out = {}
+        for f in fields:
+            got, want = getattr(bank, f)[:rows], ref[f][:rows]
+            same = got.shape == want.shape and got.dtype == want.dtype
+            out[f] = int((got != want).reshape(rows, -1).any(1).sum()) if same else -1
+        return out
+
+    dual_ref_bank = np.load(os.path.join(EXAMPLE, "banks_dual", "lagergehaeuse.npz"))
+    n_dual = banks["dual"].num_templates
+    check(n_dual == dual_ref_bank["quat"].shape[0] == 1950, f"the dual bank has {n_dual} templates")
+    dual_diff = differing_rows(banks["dual"], dual_ref_bank, FIELDS + DUAL_FIELDS, n_dual)
+    phase(9, f"dual bank generated on the card: {n_dual} templates in {seconds['dual']:.2f} s ({card}); "
+             f"rows differing from example/banks_dual (JAX's CPU generation), per array: {dual_diff}")
+    check(banks["dual"].dual_modality and max(dual_diff.values()) == 0, "the dual bank differs from JAX's")
+
+    color_ref = np.load(GEN_COLOR_REF)
+    n_color = banks["color"].num_templates
+    check(n_color == 1950, f"the color bank has {n_color} templates")
+    color_diff = differing_rows(banks["color"], color_ref, FIELDS, 130)
+    old = np.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
+    old_rows = sum(differing_rows(banks["color"], old, ("feat0", "feat1"), n_color).values())
+
+    def level0(feat, valid, bbox, i):
+        """Template i's level-0 features as (x, y, ori) in the image."""
+        f = feat[i][valid[i]].astype(np.int64) + [bbox[i][0], bbox[i][1], 0]
+        return set(map(tuple, f))
+
+    cb = banks["color"]
+    common = [len(level0(cb.feat0, cb.valid0, cb.bbox, i) & level0(old["feat0"], old["valid0"], old["bbox"], i))
+              for i in range(n_color)]
+    phase(9, f"color bank generated on the card: {n_color} templates in {seconds['color']:.2f} s ({card}); "
+             f"rows 0-129 differing from the color golden (JAX's CPU generation), per array: {color_diff}; "
+             f"rows whose level-0 or level-1 features differ from the committed example/banks (an older "
+             f"generation), summed over the two: {old_rows} of {n_color}; level-0 features in common with "
+             f"it a template: {min(common)}-{max(common)} of 63 (median {int(np.median(common))})")
+    check(max(color_diff.values()) == 0, "the color bank's first radius differs from JAX's")
+    for kind in ("dual", "color"):
+        views = banks[kind].num_templates
+        split = ", ".join(f"{k} {1e3 * timings[kind][k] / views:.3f}" for k in TIMED_PHASES)
+        phase(9, f"{kind} generation, ms a template (host clock, a device sync after each phase): {split}; "
+                 f"total {1e3 * seconds[kind] / views:.3f} ({card})")
+
+    # the card's banks drive detection
+    gt = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
+    verts = model_vertices(model, dev)
+    bench = Benchmark(mesh, cam, dev)
+    det = PoseDetection(banks["color"], cam, settings, props, dev)
+    scene = det.recenter(np.ascontiguousarray(depth)).astype(np.float32)
+    sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+    handle = det.detect_submit(color, depth)
+    poses = det.detect_collect(handle, 1)
+    launches = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches,
+                "coarse_max": sc.coarse_max.launches}
+    check(len(poses) == 1, f"the card's color bank: {len(poses)} poses")
+    add, vsd = score_add(verts, gt, poses[0]), bench.score_vsd(scene, gt, poses[0])
+    phase(9, f"detect with the card's color bank: launches coarse_scores {launches['coarse']}, fine_scores "
+             f"{launches['fine']}, coarse_max {launches['coarse_max']}; pose t="
+             f"{np.round(poses[0].translation, 3).tolist()} mm, ADD {add:.3f} mm, VSD {vsd:.5f}")
+    check(launches == {"coarse": 1, "fine": 1, "coarse_max": 0}, "the generated color bank's launches")
+    check(add <= OBJECT_DIAMETER and vsd < VSD_CORRECT, "the generated color bank's pose fails ADD or VSD")
+
+    dual_ref = np.load(DUAL_REF)
+    det_d = PoseDetection(banks["dual"], cam, dual_settings, props, dev)
+    handle = det_d.detect_submit(color, depth)
+    packed = handle[0].cpu().numpy()
+    dposes = det_d.detect_collect(handle, 1)
+    ints_equal = np.array_equal(packed[:, [0, 1, 2, 4]], dual_ref["packed"][:, [0, 1, 2, 4]])
+    sim_err = float(np.abs(packed[:, 3] - dual_ref["packed"][:, 3]).max())
+    check(len(dposes) == 1, f"the card's dual bank: {len(dposes)} poses")
+    dt = float(np.abs(dposes[0].translation - dual_ref["translation"]).max())
+    dq = float(np.abs(dposes[0].quaternion - dual_ref["quaternion"]).max())
+    phase(9, f"detect with the card's dual bank: packed {list(packed.shape)} vs JAX golden: ints equal "
+             f"{ints_equal}, max|sim diff| {sim_err:.3g}; pose max|dt| {dt:.3g} mm, max|dq| {dq:.3g}")
+    check(packed.shape == (512, 5) and ints_equal and sim_err <= SIM_ATOL and dt <= 0.5 and dq <= 1e-4,
+          "the generated dual bank's detection differs from the JAX golden")
+
+    # one radius (130 views) of color generation: its wall time without the
+    # profiler, then the device's busy time over it with the profiler
+    # tracing the device alone (the host's ~10^5 operator events would
+    # take minutes to collect)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    radius = dataclasses.replace(settings, distance_stop=settings.distance_start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_template_bank(mesh, "lagergehaeuse.ply", cam, radius, props, dev)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        build_template_bank(mesh, "lagergehaeuse.ply", cam, radius, props, dev)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def self_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    busy, count = sum(self_ms(e) for e in ops), sum(e.count for e in ops)
+    top = sorted(((e.key[:60], self_ms(e)) for e in ops), key=lambda t: -t[1])[:5]
+    phase(9, f"one radius of color generation (130 views): {wall:.1f} ms wall; profiler: device busy "
+             f"{busy:.1f} ms ({busy / wall:.1%} busy, {1 - busy / wall:.1%} idle) over {count} device "
+             f"operations; top: " + ", ".join(f"{n} {ms:.1f} ms" for n, ms in top) + f" ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -535,6 +682,7 @@ def main() -> int:
     from linemod_tpu_torch.pipeline.pose_detection import PoseDetection, make_match_config, resolve_prefilter_packed
     from linemod_tpu_torch.tools.coarse_max_split import scan_cases, synthetic_1280
     from linemod_tpu_torch.tools.fine_time import fine_cases, fine_edge_cases, fine_work
+    from linemod_tpu_torch.utils.mesh_io import load_mesh
     from linemod_tpu_torch.utils.ply import load_ply
     from linemod_tpu_torch.utils.png import read_png
 
@@ -1138,7 +1286,11 @@ def main() -> int:
     icp_launches = icp_phase(dev, card, cam, settings, bank, props, color, depth)
     multi = multi_phase(dev, card, cam, settings, bank, props, color, depth, colorf)
 
-    # -- phase 9: the probes
+    # -- phase 9: offline template generation on the card
+    gen_launches = generate_phase(dev, card, cam, settings, props,
+                                  load_mesh(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply")), color, depth)
+
+    # -- phase 10: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -1171,12 +1323,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(9, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(10, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 10: results
+    # -- phase 11: results
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
@@ -1196,11 +1348,11 @@ def main() -> int:
         {**entry("coarse_scores", "similarity.cu", f"{pallas}:77", launches["coarse"], max(err_c, dual_err["coarse"]),
                  *times["coarse"], bounds["coarse"], library["coarse"]),
          "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
-         "multi": multi["coarse"]},
+         "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]}},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
          "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
-         "multi": multi["fine"]},
+         "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]}},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
          "dual": dual("coarse_max", dual_launches["coarse_max"]),

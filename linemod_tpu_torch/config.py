@@ -51,6 +51,16 @@ class TemplateSettings:
     use_icp: bool = False
     icp_subsampling_factor: int = 2
 
+    @property
+    def in_plane_angles(self) -> np.ndarray:
+        return np.arange(self.angle_start, self.angle_stop + 1, self.angle_step, dtype=np.float32)
+
+    @property
+    def radii(self) -> np.ndarray:
+        return np.arange(
+            self.distance_start, self.distance_stop + 1, self.distance_step, dtype=np.float32
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelProperties:
@@ -115,3 +125,11 @@ def load_model_properties(model_path: str) -> ModelProperties:
         rotationally_symmetrical=bool(int(d.get("has rotational symmetry", 0))),
         planes_of_symmetry=planes,
     )
+
+
+def files_in_directory(folder: str, ending: str) -> list:
+    """The files of `folder` that end in `ending`, sorted (none when the
+    folder does not exist)."""
+    if not os.path.isdir(folder):
+        return []
+    return sorted(f for f in os.listdir(folder) if f.endswith(ending))

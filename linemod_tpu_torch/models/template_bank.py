@@ -1,10 +1,16 @@
-"""Dense template bank: loading, padding and concatenation.
+"""Dense template bank: generation, persistence, padding and concatenation
+(counterpart of `linemod_tpu/models/template_bank.py`).
 
-Counterpart of the persistence half of `linemod_tpu/models/template_bank.py`
-(one npz of dense per-template arrays plus a json sidecar with the class id
-and modality flag) and of its `concat_banks`. The bank stays host numpy:
-`ops/matching` derives the device tensors from it. Template generation is
-not ported yet.
+A bank is one npz of dense per-template arrays plus a json sidecar with the
+class id and the modality flag; both packages read each other's. The bank
+stays host numpy: `ops/matching` derives the device tensors from it.
+
+Generation renders every template view (radius outermost, then viewpoint,
+then in-plane angle) on the device, quantizes and cuts its candidates a
+radius at a time, selects every view's features in one scan, and assembles
+the records on the host. A view is the object rendered from the template's
+own pose (the camera rolled by the in-plane angle), which keeps pose and
+pixels consistent by construction.
 """
 
 from __future__ import annotations
@@ -12,11 +18,25 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import time
 
 import numpy as np
+import torch
 
-MAX_FEATURES = 64
+from ..config import CameraParameters, ModelProperties, TemplateSettings
+from ..ops.extract import concat_candidates, cut_candidates, quantize_views, scan_select
+from ..ops.rasterizer import mesh_to_arrays, render
+from ..utils.geometry import quat_to_mat, template_view_pose
+from .viewpoints import camera_view_points
+
+MAX_FEATURES = 64  # 63 features padded to 64
 HULL_VERTS = 32
+BG_DEPTH = 65535.0
+CROP = 320  # the template render window (object centred)
+TIMED_PHASES = ("render", "quantize", "cut", "scan", "assemble")
+# the bank's arrays, in the order of the npz
+FIELDS = ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull")
+DUAL_FIELDS = ("nfeat0", "nvalid0", "nfeat1", "nvalid1")
 
 
 @dataclasses.dataclass
@@ -41,6 +61,13 @@ class TemplateBank:
     def num_templates(self) -> int:
         return int(self.bbox.shape[0])
 
+    def save(self, path: str) -> None:
+        """Write `<path>` (.npz) and its `<path>.json` sidecar."""
+        fields = FIELDS + (DUAL_FIELDS if self.dual_modality else ())
+        np.savez_compressed(path, **{f: getattr(self, f) for f in fields})
+        with open(path + ".json", "w") as f:
+            json.dump({"class_id": self.class_id, "dual_modality": self.dual_modality}, f)
+
     @staticmethod
     def load(path: str) -> "TemplateBank":
         """Load `<path>` (.npz) and its `<path>.json` sidecar."""
@@ -58,8 +85,9 @@ def make_synthetic_bank(
     seed: int = 0,
     bbox_wh: int = 48,
     image_wh=(640, 480),
+    dual_modality: bool = False,
 ) -> TemplateBank:
-    """Random color-only bank (no rendering), the same arrays as
+    """Random bank (no rendering), the same arrays as
     `linemod_tpu.models.template_bank.make_synthetic_bank` for one seed."""
     rng = np.random.default_rng(seed)
     w, h = image_wh
@@ -81,6 +109,9 @@ def make_synthetic_bank(
     hull = np.zeros((n_templates, HULL_VERTS, 2), np.float32)
     hull[:, 1] = (bbox_wh, 0)
     hull[:, 2:] = (bbox_wh, bbox_wh)
+    dual = {}
+    if dual_modality:
+        dual = dict(nfeat0=feats(1), nvalid0=valid.copy(), nfeat1=feats(2), nvalid1=valid.copy())
     return TemplateBank(
         class_id="synthetic",
         feat0=feats(1),
@@ -92,6 +123,8 @@ def make_synthetic_bank(
         z=np.full((n_templates,), 600.0, np.float32),
         median_depth=np.full((n_templates,), 580.0, np.float32),
         hull=hull,
+        dual_modality=dual_modality,
+        **dual,
     )
 
 
@@ -113,9 +146,7 @@ def concat_banks(banks: list[TemplateBank]) -> tuple[TemplateBank, np.ndarray]:
             return None
         return np.concatenate(parts, axis=0)
 
-    fields = ["feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull"]
-    if dual:
-        fields += ["nfeat0", "nvalid0", "nfeat1", "nvalid1"]
+    fields = FIELDS + (DUAL_FIELDS if dual else ())
     combined = TemplateBank(
         class_id="+".join(b.class_id for b in banks),
         dual_modality=dual,
@@ -159,3 +190,232 @@ def _pad_bank(bank: TemplateBank, chunk: int) -> TemplateBank:
     b.nfeat1 = padded(bank.nfeat1)
     b.nvalid1 = padded(bank.nvalid1, False)
     return b
+
+
+def _convex_hull(points: np.ndarray) -> np.ndarray:
+    """Andrew's monotone chain; points [M, 2] -> hull vertices CCW."""
+    pts = np.unique(points, axis=0)
+    if len(pts) <= 2:
+        return pts
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+
+    def cross2(a, b):
+        return a[0] * b[1] - a[1] * b[0]
+
+    def half(seq):
+        out = []
+        for p in seq:
+            while len(out) >= 2 and cross2(out[-1] - out[-2], p - out[-2]) <= 0:
+                out.pop()
+            out.append(p)
+        return out[:-1]
+
+    return np.asarray(half(pts) + half(pts[::-1]), dtype=np.float32)
+
+
+def _pad_hull(hull: np.ndarray) -> np.ndarray:
+    """[HULL_VERTS, 2], padded by repeating the last vertex."""
+    h = np.zeros((HULL_VERTS, 2), np.float32)
+    n = min(len(hull), HULL_VERTS)
+    h[:n] = hull[:n]
+    if n > 0:
+        h[n:] = hull[n - 1]
+    return h
+
+
+def _feature_box(sel: dict, dual: bool):
+    """Per view, the level-0 box (x_min, x_max, y_min, y_max) of the valid
+    features of grad0, grad1 (scaled by 2) and, dual, norm0; +-1e9 where a
+    view has none."""
+    keys = [("grad0", 1), ("grad1", 2)] + ([("norm0", 1)] if dual else [])
+    big = 10**9
+    lo_x, hi_x, lo_y, hi_y = [], [], [], []
+    for key, scale in keys:
+        x, y, _, v = sel[key]
+        lo_x.append(torch.where(v, x * scale, big).amin(1))
+        hi_x.append(torch.where(v, x * scale, -big).amax(1))
+        lo_y.append(torch.where(v, y * scale, big).amin(1))
+        hi_y.append(torch.where(v, y * scale, -big).amax(1))
+    return (torch.stack(lo_x).amin(0), torch.stack(hi_x).amax(0),
+            torch.stack(lo_y).amin(0), torch.stack(hi_y).amax(0))
+
+
+def _p20(depth: torch.Tensor, box) -> torch.Tensor:
+    """Per view [B, H, W], the exact k-th smallest depth over the feature
+    box (background as BG_DEPTH), k = the box's area // 5."""
+    x0, x1, y0, y1 = (t[:, None, None] for t in box)
+    b, h, w = depth.shape
+    yy = torch.arange(h, device=depth.device)[None, :, None]
+    xx = torch.arange(w, device=depth.device)[None, None, :]
+    in_bb = (xx >= x0) & (xx <= x1) & (yy >= y0) & (yy <= y1)
+    vals = torch.where(in_bb, torch.where(depth > 0, depth, BG_DEPTH), torch.inf)
+    k = ((box[1] - box[0] + 1) * (box[3] - box[2] + 1)) // 5
+    k = k.clamp(0, h * w - 1)  # a view without features is dropped anyway
+    return vals.reshape(b, -1).sort(dim=1).values.gather(1, k[:, None].long())[:, 0]
+
+
+def _assemble_template(f, p20s, i, ox, oy, dual):
+    """One bank record from view i's per-level features, or None for a
+    degenerate view (fewer than 8 valid color features at either level).
+
+    Coordinates: crop -> the template image's frame (+ox, +oy); features are
+    re-based on the level-0 box's corner, shifted right by the level, and
+    clipped at zero."""
+    gx0, gy0, go0, gv0 = (a[i] for a in f["grad0"])
+    gx1, gy1, go1, gv1 = (a[i] for a in f["grad1"])
+    if gv0.sum() < 8 or gv1.sum() < 8:
+        return None
+    xs0 = [gx0[gv0]]
+    ys0 = [gy0[gv0]]
+    if dual:
+        nx0, ny0, no0, nv0 = (a[i] for a in f["norm0"])
+        nx1, ny1, no1, nv1 = (a[i] for a in f["norm1"])
+        xs0.append(nx0[nv0])
+        ys0.append(ny0[nv0])
+    # level-1 features scaled up for the box over all levels
+    xs_all = np.concatenate(xs0 + [gx1[gv1] * 2])
+    ys_all = np.concatenate(ys0 + [gy1[gv1] * 2])
+    x_min, x_max = int(xs_all.min()), int(xs_all.max())
+    y_min, y_max = int(ys_all.min()), int(ys_all.max())
+
+    def rebase(x, y, o, lvl):
+        arr = np.zeros((MAX_FEATURES, 3), np.int16)
+        arr[: len(x), 0] = x - (x_min >> lvl)
+        arr[: len(x), 1] = y - (y_min >> lvl)
+        arr[: len(x), 2] = o
+        val = np.zeros(MAX_FEATURES, bool)
+        val[: len(x)] = True
+        arr[:, :2] = np.maximum(arr[:, :2], 0)  # negatives of the >> lvl rounding
+        return arr, val
+
+    rec = {}
+    rec["feat0"], rec["valid0"] = rebase(gx0[gv0], gy0[gv0], go0[gv0], 0)
+    rec["feat1"], rec["valid1"] = rebase(gx1[gv1], gy1[gv1], go1[gv1], 1)
+    if dual:
+        rec["nfeat0"], rec["nvalid0"] = rebase(nx0[nv0], ny0[nv0], no0[nv0], 0)
+        rec["nfeat1"], rec["nvalid1"] = rebase(nx1[nv1], ny1[nv1], no1[nv1], 1)
+    rec["bbox"] = np.array(
+        [x_min + int(ox), y_min + int(oy), x_max - x_min + 1, y_max - y_min + 1], np.int32
+    )
+    rec["median_depth"] = np.float32(p20s[i])
+    pts = np.stack([gx0[gv0] - x_min, gy0[gv0] - y_min], axis=1).astype(np.float32)
+    rec["hull"] = _pad_hull(_convex_hull(pts))
+    return rec
+
+
+def build_template_bank(
+    mesh,
+    class_id: str,
+    cam: CameraParameters,
+    settings: TemplateSettings,
+    props: ModelProperties,
+    device,
+    progress=None,
+    timings: dict | None = None,
+) -> TemplateBank:
+    """Offline template generation on `device`: radii x viewpoints x
+    in-plane angles, each view rendered from its pose in a CROP x CROP
+    window centred in the camera image, its candidates cut a radius at a
+    time, and every view's features selected in one scan.
+
+    `progress(radius, views)` is called after each radius is rendered and
+    cut, with the count of views so far. `timings`, where given, gains the
+    seconds spent in each of TIMED_PHASES: "render", "quantize", "cut" (to
+    512 candidates a map), "scan" (the selection) and "assemble" (the box
+    statistics and the host records); the phases are timed on the host
+    clock after a device sync each."""
+    dev = torch.device(device)
+    marr = mesh_to_arrays(mesh, dev)
+    dual = not settings.only_color_modality
+    ox = (cam.width - CROP) / 2.0
+    oy = (cam.height - CROP) / 2.0
+    # the reference's in-plane pose angle is the negated warp angle
+    angles = [-a for a in settings.in_plane_angles]
+    clock = {k: 0.0 for k in TIMED_PHASES}
+
+    def lap(key, t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        clock[key] += t - t0
+        return t
+
+    quats, zs, depths, cands = [], [], [], []
+    for radius in settings.radii:
+        vps = camera_view_points(
+            float(radius), settings.subdivisions, props.rotationally_symmetrical, props.planes_of_symmetry
+        )
+        q = np.array([template_view_pose(vp, a) for vp in vps for a in angles], np.float64)
+        t0 = time.perf_counter()
+        views = [
+            render(
+                marr, quat_to_mat(qi).astype(np.float32), np.array([0.0, 0.0, radius], np.float32),
+                cam.fx, cam.fy, cam.width / 2.0, cam.height / 2.0, width=CROP, height=CROP,
+                with_color=True, origin=(ox, oy), focal_reciprocal=True,
+            )
+            for qi in q
+        ]
+        depth = torch.stack([d for d, _ in views])
+        color = torch.stack([c for _, c in views]) * 255.0
+        t0 = lap("render", t0)
+        maps = quantize_views(color, depth, dual)
+        t0 = lap("quantize", t0)
+        cands.append({k: cut_candidates(*m) for k, m in maps.items()})
+        lap("cut", t0)
+        del views, color, maps
+        quats.append(q)
+        zs.append(np.full(len(q), radius, np.float32))
+        depths.append(depth)
+        if progress is not None:
+            progress(float(radius), sum(len(a) for a in quats))
+
+    t0 = time.perf_counter()
+    keys = list(cands[0])
+    counts = [len(a) for a in quats]
+    sel = scan_select(concat_candidates([c[k] for k in keys for c in cands]))
+    t0 = lap("scan", t0)
+    # rows are key-major, then radius, then view
+    n = sum(counts)
+    sel = {k: tuple(a[j * n : (j + 1) * n] for a in sel) for j, k in enumerate(keys)}
+    box = _feature_box(sel, dual)
+    p20 = torch.cat([
+        _p20(d, tuple(t[s : s + len(d)] for t in box))
+        for d, s in zip(depths, np.cumsum([0] + counts[:-1]))
+    ])
+    f = {k: tuple(a.cpu().numpy() for a in v) for k, v in sel.items()}
+    p20 = p20.cpu().numpy()
+    quats, zs = np.concatenate(quats), np.concatenate(zs)
+    records = {k: [] for k in FIELDS + DUAL_FIELDS}
+    for i in range(n):
+        rec = _assemble_template(f, p20, i, ox, oy, dual)
+        if rec is None:
+            continue
+        for k, v in rec.items():
+            records[k].append(v)
+        records["quat"].append(quats[i].astype(np.float32))
+        records["z"].append(zs[i])
+    lap("assemble", t0)
+    if timings is not None:
+        for k, v in clock.items():
+            timings[k] = timings.get(k, 0.0) + v
+
+    def stack(k):
+        return np.stack(records[k]) if records[k] else None
+
+    return TemplateBank(
+        class_id=class_id,
+        feat0=stack("feat0"),
+        valid0=stack("valid0"),
+        feat1=stack("feat1"),
+        valid1=stack("valid1"),
+        bbox=stack("bbox"),
+        quat=stack("quat"),
+        z=np.asarray(records["z"], np.float32),
+        median_depth=np.asarray(records["median_depth"], np.float32),
+        hull=stack("hull"),
+        dual_modality=dual,
+        nfeat0=stack("nfeat0"),
+        nvalid0=stack("nvalid0"),
+        nfeat1=stack("nfeat1"),
+        nvalid1=stack("nvalid1"),
+    )

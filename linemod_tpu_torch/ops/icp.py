@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from ..types import ObjectPose
 from ..utils.geometry import mat_to_quat, quat_to_mat
 from .depth3d import scene_cloud_from_depth, sqrt32
+from .extract import erode_mask
 from .rasterizer import MeshArrays, _cross, dot3, render
 
 REJECTION_SCALE = 2.5
@@ -174,14 +175,10 @@ def verify_mean_depth_diff(depth_scene: torch.Tensor, depth_render: torch.Tensor
     src/HighLevelLinemodIcp.cpp:93-127): mean |scene - render| over the
     twice-eroded mask of rendered pixels whose scene depth is above 600 mm.
 
-    The erosion is a 3x3 min that ignores pixels outside the image (a max
-    pool of the negated mask pads with -inf). An empty eroded mask scores
-    0.0, which passes the gate: the reference's count is clamped to 1, and
-    the port keeps that."""
-    m = ((depth_render > 0) & (depth_scene > VERIFY_SCENE_MIN_MM)).float()
-    for _ in range(2):
-        m = -F.max_pool2d(-m[None], 3, stride=1, padding=1)[0]
-    m = m > 0.5
+    The erosion is a 3x3 min that ignores pixels outside the image. An
+    empty eroded mask scores 0.0, which passes the gate: the reference's
+    count is clamped to 1, and the port keeps that."""
+    m = erode_mask((depth_render > 0) & (depth_scene > VERIFY_SCENE_MIN_MM), 2)
     diff = (depth_scene - depth_render).abs()
     cnt = m.sum().clamp(min=1)
     return (torch.where(m, diff, 0.0).double().sum() / cnt).float()

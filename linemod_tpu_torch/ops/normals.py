@@ -21,23 +21,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .gradients import _fma, atan2
+
 DIFFERENCE_THRESHOLD = 50.0  # mm, depth-discontinuity rejection
 MIN_SLOPE = 1.0  # mm depth change a pixel before a direction is meaningful
 NEIGHBOR_VOTES = 5  # of the 9 in a 3x3 patch
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[y, x] = x[y + dy, x + dx], 0 outside the image."""
-    h, w = x.shape
+    """out[..., y, x] = x[..., y + dy, x + dx], 0 outside the image."""
+    h, w = x.shape[-2:]
     pad = F.pad(x, (1, 1, 1, 1))
-    return pad[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+    return pad[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
 
 
 def quantize_normals(depth: torch.Tensor):
     """Quantize the depth slope's azimuth into 8-bin one-hot bitmasks.
 
-    depth: [H, W] float mm (0 = invalid). Returns (quantized [H, W] uint8,
-    slope_mag2 [H, W] float32)."""
+    depth: [..., H, W] float mm (0 = invalid). Returns (quantized [..., H, W]
+    uint8, slope_mag2 [..., H, W] float32)."""
     d = depth.to(torch.float32)
 
     def grad(a, b):
@@ -56,19 +58,23 @@ def quantize_normals(depth: torch.Tensor):
     gx, okx = grad(_shift(d, 0, 1), _shift(d, 0, -1))
     gy, oky = grad(_shift(d, 1, 0), _shift(d, -1, 0))
     ok = (d > 0) & okx & oky
-    mag2 = gx * gx + gy * gy
+    # fused as XLA's CPU backend fuses it: on integer-mm depths the products
+    # are exact either way, on rendered (float) depths only this order
+    # gives the reference's magnitudes, which order the feature selection
+    mag2 = _fma(gx, gx, gy * gy)
 
     # 8 azimuth bins over the full 360 degrees (normals are directed)
-    angle = torch.atan2(gy, gx)
+    angle = atan2(gy, gx)
     bin8 = torch.round(angle * float(np.float32(8.0 / (2.0 * np.pi)))).to(torch.int32) & 7
 
     # 3x3 vote over the edge-padded one-hot bins
-    onehot = F.one_hot(bin8.long(), 8).to(torch.float32).permute(2, 0, 1)
-    pad = F.pad(onehot[None], (1, 1, 1, 1), mode="replicate")[0]
-    h, w = d.shape
-    votes = sum(pad[:, dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3))
-    winner = votes.argmax(dim=0)  # first maximum
-    count = votes.amax(dim=0)
+    h, w = d.shape[-2:]
+    onehot = F.one_hot(bin8.long(), 8).to(torch.float32).movedim(-1, -3)  # [..., 8, H, W]
+    pad = F.pad(onehot.reshape(-1, 8, h, w), (1, 1, 1, 1), mode="replicate")
+    pad = pad.reshape(*onehot.shape[:-2], h + 2, w + 2)
+    votes = sum(pad[..., dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3))
+    winner = votes.argmax(dim=-3)  # first maximum
+    count = votes.amax(dim=-3)
     keep = (count >= NEIGHBOR_VOTES) & ok & (mag2 > MIN_SLOPE * MIN_SLOPE)
     onebit = torch.bitwise_left_shift(torch.ones_like(winner), winner).to(torch.uint8)
     return torch.where(keep, onebit, torch.zeros_like(onebit)), mag2

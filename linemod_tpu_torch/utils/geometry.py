@@ -1,14 +1,19 @@
-"""Pose math on the host (numpy): quaternions and the view-ray rotation.
+"""Pose math on the host (numpy): quaternions, template poses and the
+view-ray rotation.
 
 The port's own copy of the parts of `linemod_tpu/utils/geometry.py` that
-detection and scoring use. Conventions follow GLM, as the reference's template poses
-do: `look_at` is glm::lookAt (right-handed, the camera looks down -z in its
-own frame) and quaternions are (w, x, y, z), normalized.
+template generation, detection and scoring use. Conventions follow GLM, as
+the reference's template poses do: `look_at` is glm::lookAt (right-handed,
+the camera looks down -z in its own frame), the GL camera frame becomes the
+CV frame by left-multiplication with diag(1, -1, -1), and quaternions are
+(w, x, y, z), normalized.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+GL_TO_CV = np.diag([1.0, -1.0, -1.0]).astype(np.float64)
 
 
 def normalize(v: np.ndarray) -> np.ndarray:
@@ -95,6 +100,48 @@ def quat_to_mat(q: np.ndarray) -> np.ndarray:
         ],
         dtype=np.float64,
     )
+
+
+def quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return np.array(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dtype=np.float64,
+    )
+
+
+def camera_up_on_sphere(cam_pos: np.ndarray, world_up=(0.0, 1.0, 0.0)) -> np.ndarray:
+    """The negated camera-up vector of the reference's template pose: for a
+    camera at `cam_pos` looking at the origin, camUp = normalize(cross(p,
+    cross(p, up))), and lookAt is given -camUp (world-up projected onto the
+    plane perpendicular to the view ray). A camera on the y axis is nudged
+    by 1e-11 in x, as in the reference."""
+    p = np.asarray(cam_pos, dtype=np.float64).copy()
+    if p[0] == 0.0 and p[2] == 0.0:
+        p[0] = 1e-11
+    cam_up = normalize(np.cross(p, np.cross(p, np.asarray(world_up, dtype=np.float64))))
+    return -cam_up
+
+
+def template_view_pose(cam_pos, inplane_deg: float) -> np.ndarray:
+    """CV-frame rotation quaternion of a template viewpoint: the up-vector
+    -camUp rotated by the in-plane angle about the view ray, view =
+    lookAt(cam_pos, 0, rotated up), then the GL -> CV change of frame. The
+    template's translation is (0, 0, |cam_pos|)."""
+    p = np.asarray(cam_pos, dtype=np.float64).copy()
+    if p[0] == 0.0 and p[2] == 0.0:
+        p[0] = 1e-11
+    neg_cam_up = camera_up_on_sphere(p)
+    rot = rotation_about_axis(p, np.radians(float(inplane_deg)))
+    rotated_up = rot @ neg_cam_up
+    view = look_at(p, np.zeros(3), rotated_up)
+    return mat_to_quat(GL_TO_CV @ view[:3, :3])
 
 
 def view_ray_rotation(position: np.ndarray) -> np.ndarray:

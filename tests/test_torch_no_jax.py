@@ -44,6 +44,10 @@ def test_port_imports_without_jax_cv2_yaml():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout)
     assert len(result["modules"]) >= 15, result["modules"]
+    generation = {"linemod_tpu_torch." + m for m in (
+        "models.template_bank", "models.viewpoints", "ops.extract", "pipeline.template_generator",
+        "utils.mesh_io")}
+    assert generation <= set(result["modules"]), generation - set(result["modules"])
     assert result["loaded"] == []
 
 

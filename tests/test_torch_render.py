@@ -10,7 +10,9 @@ their depth within 1e-2 mm where both cover (the port fuses its dot
 products as XLA's CPU backend does, and its render of pose0 equals JAX's
 bit for bit, 6,548 pixels; in another order the cofactors' cancellation
 moves depths by up to 0.142 mm); metrics atol 1e-4 (ADD, ADD-S in mm;
-VSD, a ratio of pixel counts).
+VSD, a ratio of pixel counts). Colors, and the renders at template poses
+(depth and color, as a standalone render and as template generation
+compiles it), are held to JAX's exactly.
 """
 
 import os
@@ -158,7 +160,7 @@ def test_small_scene_equals_jax(with_color):
     np.testing.assert_array_equal(d_g > 0, d_w > 0)
     np.testing.assert_allclose(d_g, d_w, rtol=0, atol=DEPTH_ATOL_MM)
     if with_color:
-        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 def test_render_views_equals_single_renders():
@@ -180,6 +182,87 @@ def test_render_views_equals_single_renders():
         assert (d > 0).sum() > 100
         np.testing.assert_array_equal(depth[i].numpy(), d.numpy())
         np.testing.assert_array_equal(color[i].numpy(), c.numpy())
+
+
+# ------------------------------------------ the fixture at template poses ---
+
+# (viewpoint index at radius 500, in-plane angle): view 1 holds a pixel that
+# only the padding faces cover, far from their projection
+TEMPLATE_VIEWS = [(0, -45.0), (5, 15.0), (40, 35.0)]
+
+
+@pytest.fixture(scope="module")
+def template_renders():
+    """The fixture model at three template poses (radius 500, the 320 x 320
+    window at origin (160, 80)), rendered by JAX's `render` as a standalone
+    program and as template generation compiles it (an outer jit and
+    lax.map closing over the mesh and the camera), and by the port with and
+    without `focal_reciprocal`."""
+    import jax
+
+    from linemod_tpu.ops.rasterizer import mesh_to_arrays as jax_arrays
+    from linemod_tpu.ops.rasterizer import render as jax_render
+    from linemod_tpu_torch.config import CameraParameters
+    from linemod_tpu_torch.models.viewpoints import camera_view_points
+    from linemod_tpu_torch.ops.rasterizer import mesh_to_arrays, render
+    from linemod_tpu_torch.utils.geometry import quat_to_mat, template_view_pose
+    from linemod_tpu_torch.utils.ply import load_ply
+
+    cam = CameraParameters()
+    mesh = load_ply(MODEL)
+    vps = camera_view_points(500.0, 3)
+    rots = np.array([quat_to_mat(template_view_pose(vps[i], a)) for i, a in TEMPLATE_VIEWS], np.float32)
+    trans = np.tile(np.array([[0.0, 0.0, 500.0]], np.float32), (len(rots), 1))
+    kw = dict(width=320, height=320, with_color=True, origin=(160.0, 80.0))
+    args = (cam.fx, cam.fy, cam.width / 2.0, cam.height / 2.0)
+    jmesh = jax_arrays(mesh)
+    standalone = [jax_render(jmesh, jnp.asarray(r), jnp.asarray(t), *args, **kw) for r, t in zip(rots, trans)]
+
+    @jax.jit
+    def generation(rs, ts):
+        return jax.lax.map(lambda rt: jax_render(jmesh, rt[0], rt[1], *args, **kw), (rs, ts))
+
+    gen = generation(jnp.asarray(rots), jnp.asarray(trans))
+    pmesh = mesh_to_arrays(mesh, "cpu")
+    out = {}
+    for i in range(len(rots)):
+        out["standalone", i] = tuple(np.asarray(a) for a in standalone[i])
+        out["generation", i] = (np.asarray(gen[0][i]), np.asarray(gen[1][i]))
+        for form, recip in (("port", False), ("port_gen", True)):
+            d, c = render(pmesh, rots[i], trans[i], *args, focal_reciprocal=recip, **kw)
+            out[form, i] = (d.numpy(), c.numpy())
+    return out
+
+
+@pytest.mark.parametrize("view", range(len(TEMPLATE_VIEWS)))
+@pytest.mark.parametrize("form", ["standalone", "generation"])
+def test_template_pose_render_equals_jax(template_renders, form, view):
+    """Depth and color at a template pose, bit for bit: the default render
+    against JAX's standalone program, `focal_reciprocal` against the
+    generation program's."""
+    want = template_renders[form, view]
+    got = template_renders["port" if form == "standalone" else "port_gen", view]
+    assert (want[0] > 0).sum() > 3000
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_template_forms_differ():
+    """The two forms are different programs: XLA multiplies by the focal
+    lengths' reciprocals where the camera is a constant. The port's forms
+    differ likewise (so neither test above is vacuous)."""
+    from linemod_tpu_torch.ops.rasterizer import mesh_to_arrays, render
+    from linemod_tpu_torch.utils.geometry import rotation_about_axis
+
+    mesh = square_mesh(z=620.0, half=60.0, slant=0.3)
+    rot = rotation_about_axis([0.1, 0.3, 1.0], 0.4).astype(np.float32)
+    kw = dict(width=W, height=H)
+    a = render(mesh_to_arrays(mesh, "cpu"), rot, np.zeros(3, np.float32), 1044.87, 1045.69141, CX, CY,
+               **kw).numpy()
+    b = render(mesh_to_arrays(mesh, "cpu"), rot, np.zeros(3, np.float32), 1044.87, 1045.69141, CX, CY,
+               focal_reciprocal=True, **kw).numpy()
+    np.testing.assert_array_equal(a > 0, b > 0)
+    assert (a != b).sum() > 0 and float(np.abs(a - b).max()) < 1e-2
 
 
 # ---------------------------------------- the fixture's ground-truth pose ---
