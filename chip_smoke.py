@@ -104,13 +104,32 @@ Drives the port's paths on the card and checks them, in phases:
    seconds a bank, ms a template split into render, quantize, cut, scan and
    assembly, and one radius's wall time with the device's busy share
    (torch.profiler);
-10. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+10. the command line and its tooling (`tooling_phase`): `cli detect
+   --benchmark --display --profile` over PNG frames (the fixture frame, then
+   synthetic frames of `pipeline/synth_eval` written with `write_png`, their
+   ground truth with `write_yamlcv`): each frame's pose count and VSD as
+   JAX's, every det*.png equal to the overlay drawn in memory, the mean ms
+   (fps) line and the profile printed; `cli evaluate --gt yml` on the
+   fixture and `--gt linemod` on a LINEMOD-layout sequence pass 100%; `cli
+   convert` takes the color and dual banks through the reference pair and
+   back (every array equal), its export equals the JAX golden pair
+   (tests/goldens/refpair_ref.npz), which imports to the npz bank; the
+   synthetic accuracy protocol (30 frames a mode x 4 modes, through
+   `tools/accuracy_eval`) equals tests/goldens/synth_eval_ref.npz frame for
+   frame (sha256 of color and depth, the detected set, each pose within 0.5
+   mm / 1e-4, VSD and ADD-S within 1e-3), its totals printed beside
+   ACCURACY_r05.json's and its ms a frame split into synthesis, detect and
+   scoring; `register_depth_to_color` at Kinect v2's shapes (512x424 into
+   1920x1080) with 0 pixels differing from tests/goldens/registration_ref.npz,
+   and its ms. Each CLI path prints its 2.1 and 2.2 launches a frame;
+11. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-11. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+12. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
-   two-class shapes' numbers under `multi` and the launches of detection
-   with the card's generated color bank under `generated`), then the result
-   line {"ok": true, "device": {...}} last.
+   two-class shapes' numbers under `multi`, the launches of detection
+   with the card's generated color bank under `generated`, and phase 10's
+   launches a frame of each path under `cli_launches_a_frame`), then the
+   result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -140,6 +159,12 @@ DUAL_REF = os.path.join(REPO, "tests", "goldens", "img0_dual_ref.npz")
 ICP_REF = os.path.join(REPO, "tests", "goldens", "img0_icp_ref.npz")
 MULTI_REF = os.path.join(REPO, "tests", "goldens", "img0_multi_ref.npz")
 GEN_COLOR_REF = os.path.join(REPO, "tests", "goldens", "gen_color_r500_ref.npz")
+SYNTH_REF = os.path.join(REPO, "tests", "goldens", "synth_eval_ref.npz")
+PAIR_REF = os.path.join(REPO, "tests", "goldens", "refpair_ref.npz")
+REG_REF = os.path.join(REPO, "tests", "goldens", "registration_ref.npz")
+SYNTH_FRAMES = 30  # the accuracy protocol's frames a mode
+# synthetic frames after the fixture frame in the CLI's sequence (mode, index)
+CLI_SYNTH_FRAMES = (("shiny", 0), ("holes", 0), ("clutter", 0))
 REPS = 20
 # calls a kernel's time is taken over (its plain version's, where slow)
 LAUNCHES = 50
@@ -652,6 +677,259 @@ def generate_phase(dev, card: str, cam, settings, props, mesh, color, depth) -> 
     phase(9, f"one radius of color generation (130 views): {wall:.1f} ms wall; profiler: device busy "
              f"{busy:.1f} ms ({busy / wall:.1%} busy, {1 - busy / wall:.1%} idle) over {count} device "
              f"operations; top: " + ", ".join(f"{n} {ms:.1f} ms" for n, ms in top) + f" ({card})")
+    return launches
+
+
+def kinect_depth(seed: int) -> np.ndarray:
+    """The seeded Kinect v2 depth frame of tests/goldens/registration_ref.npz
+    (tests/test_torch_registration.kinect_depth): integer mm in [500, 4500],
+    5% holes, 512x424."""
+    rng = np.random.default_rng(seed)
+    depth = np.round(rng.uniform(500.0, 4500.0, (424, 512))).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
+    return depth
+
+
+def run_cli(argv: list, cwd: str) -> str:
+    """The port's CLI in this process: its standard output; a non-zero exit
+    code fails the check."""
+    import contextlib
+    import io
+
+    from linemod_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+    finally:
+        os.chdir(here)
+    check(rc == 0, f"cli {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
+    """Phase 10: the command line (detect, evaluate, convert) and the
+    synthetic accuracy protocol on the card, and the Kinect v2
+    registration. Returns each path's 2.1 and 2.2 launches a frame."""
+    import gzip
+    import hashlib
+    import shutil
+    import tempfile
+
+    from linemod_tpu_torch.models.template_bank import TemplateBank
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.ops.metrics import OBJECT_DIAMETER, VSD_CORRECT
+    from linemod_tpu_torch.ops.registration import register_depth_to_color
+    from linemod_tpu_torch.pipeline.benchmark import read_ground_truth_pose
+    from linemod_tpu_torch.pipeline.pose_detection import DetectionDebug
+    from linemod_tpu_torch.tools.accuracy_eval import MODES, Protocol, mode_settings, mode_stats
+    from linemod_tpu_torch.utils.draw import draw_coordinate_system, draw_features
+    from linemod_tpu_torch.utils.geometry import quat_to_mat, rotation_about_axis
+    from linemod_tpu_torch.utils.io import save_depth_linemod_dataset
+    from linemod_tpu_torch.utils.png import read_png, write_png
+    from linemod_tpu_torch.utils.profiling import StageTimer
+    from linemod_tpu_torch.utils.yamlcv import write_yamlcv
+
+    def reset():
+        sc.coarse_scores.launches = sc.fine_scores.launches = 0
+
+    def per_frame(path, frames):
+        """The path's 2.1 and 2.2 launches a frame; each must have launched."""
+        counts = {"coarse": sc.coarse_scores.launches, "fine": sc.fine_scores.launches}
+        check(min(counts.values()) > 0, f"{path}: a kernel was not launched ({counts})")
+        return {k: v / frames for k, v in counts.items()}
+
+    synth = np.load(SYNTH_REF)
+    proto = Protocol.load(dev, seed=0)
+    launches = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tooling-", dir=os.path.join(REPO, "build"))
+    try:
+        # (a) detect over PNG frames: the fixture frame, then synthetic frames
+        # written with write_png, their ground truth with write_yamlcv
+        seq = os.path.join(tmp, "seq")
+        os.makedirs(seq)
+        for name in ("img0.png", "depth0.png", "pose0.yml"):
+            shutil.copy(os.path.join(EXAMPLE, "benchmark", name), seq)
+        frames = {0: None}
+        for i, (mode, index) in enumerate(CLI_SYNTH_FRAMES, start=1):
+            color_s, depth_s, gt_s, _ = proto.gen.make_frame(index, mode)
+            write_png(os.path.join(seq, f"img{i}.png"), color_s)
+            write_png(os.path.join(seq, f"depth{i}.png"), depth_s)
+            write_yamlcv(os.path.join(seq, f"pose{i}.yml"),
+                         {"rotMat": quat_to_mat(gt_s.quaternion), "position": list(gt_s.translation)})
+            frames[i] = MODES.index(mode) * SYNTH_FRAMES + index
+        display = os.path.join(tmp, "display")
+        reset()
+        out = run_cli(["detect", "--model", "lagergehaeuse.ply", "--images", os.path.join(seq, "img%d.png"),
+                       "--depths", os.path.join(seq, "depth%d.png"), "--benchmark", "--display", display,
+                       "--profile", "--device", str(dev)], EXAMPLE)
+        launches["detect"] = per_frame("cli detect", len(frames))
+        lines = out.splitlines()
+        for line in lines:
+            print("  " + line)
+        phase(10, f"cli detect over {len(frames)} PNG frames: 2.1 / 2.2 launches a frame {launches['detect']['coarse']:g}"
+                  f" / {launches['detect']['fine']:g} ({card})")
+        check(lines[0].startswith("frame 0: 1 pose(s) in ") and f"VSD error: {color_vsd:.3f}" in lines[0],
+              f"cli detect, fixture frame: {lines[0]!r} (JAX's VSD {color_vsd:.5f})")
+        for i, k in frames.items():
+            if i:
+                check(lines[i].startswith(f"frame {i}: 1 pose(s) in ")
+                      and f"VSD error: {synth['vsd'][k]:.3f}" in lines[i],
+                      f"cli detect, synthetic frame {i}: {lines[i]!r} (JAX's VSD {synth['vsd'][k]:.5f})")
+        check(lines[len(frames)].startswith(f"{len(frames)} frames, mean "), "cli detect: no mean line")
+        stages = {line.split()[0] for line in lines[len(frames) + 1:]}
+        check(stages == {"detect", "detect.submit", "detect.fetch", "detect.host_post", "decode", "benchmark",
+                         "display"}, f"cli detect --profile stages {sorted(stages)}")
+        # each overlay reads back equal to the image drawn in memory
+        det = proto.detector()
+        for i in frames:
+            color_i, depth_i = read_png(os.path.join(seq, f"img{i}.png")), read_png(os.path.join(seq, f"depth{i}.png"))
+            dbg = DetectionDebug()
+            drawn = color_i.copy()
+            poses = det.detect(color_i, depth_i, 1, debug=dbg)
+            for t, _, _, okc, okd, xy in dbg.checks:
+                if okc and okd:
+                    draw_features(drawn, bank.feat0[t], bank.valid0[t], xy)
+            for p in poses:
+                draw_coordinate_system(drawn, proto.cam, 75.0, p)
+            check(np.array_equal(read_png(os.path.join(display, f"det{i}.png")), drawn),
+                  f"det{i}.png differs from the overlay drawn in memory")
+        phase(10, f"the {len(frames)} overlays det*.png read back equal to the images drawn in memory")
+
+        # (b) evaluate: the fixture's pose*.yml, and a LINEMOD-layout sequence
+        reset()
+        out = run_cli(["evaluate", "--model", "lagergehaeuse.ply", "--images", "benchmark/img%d.png", "--depths",
+                       "benchmark/depth%d.png", "--gt", "yml", "--max-frames", "1", "--device", str(dev)], EXAMPLE)
+        launches["evaluate"] = per_frame("cli evaluate", 1)
+        print("  " + out.replace("\n", "\n  ").rstrip())
+        check("VSD pass 100.0%" in out and "ADD-S pass 100.0%" in out, "cli evaluate --gt yml")
+        lm = os.path.join(tmp, "benchmarkLINEMOD")
+        os.makedirs(lm)
+        shutil.copy(os.path.join(EXAMPLE, "benchmark", "img0.png"), os.path.join(lm, "color0.png"))
+        save_depth_linemod_dataset(os.path.join(lm, "depth0.dpt"),
+                                   read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png")))
+        gt0 = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
+        rot_raw = rotation_about_axis([1.0, 0.0, 0.0], -np.pi / 2.0).T @ quat_to_mat(gt0.quaternion)
+        with open(os.path.join(lm, "tra0.tra"), "w") as f:
+            f.write("1 3\n" + " ".join(f"{v / 10.0:.6f}" for v in gt0.translation) + "\n")
+        with open(os.path.join(lm, "rot0.rot"), "w") as f:
+            f.write("3 3\n" + "\n".join(" ".join(f"{v:.8f}" for v in row) for row in rot_raw) + "\n")
+        out = run_cli(["evaluate", "--model", "lagergehaeuse.ply", "--images", os.path.join(lm, "color%d.png"),
+                       "--depths", os.path.join(lm, "depth%d.dpt"), "--gt", "linemod", "--device", str(dev)], EXAMPLE)
+        print("  " + out.replace("\n", "\n  ").rstrip())
+        check("VSD pass 100.0%" in out and "ADD-S pass 100.0%" in out, "cli evaluate --gt linemod")
+        phase(10, f"cli evaluate --gt yml and --gt linemod pass 100.0%; 2.1 / 2.2 launches a frame "
+                  f"{launches['evaluate']['coarse']:g} / {launches['evaluate']['fine']:g}")
+
+        # (c) convert: both banks out to the reference pair and back, and the
+        # committed golden pair in
+        t0 = time.perf_counter()
+        for label, src in (("color", os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz")),
+                           ("dual", os.path.join(EXAMPLE, "banks_dual", "lagergehaeuse.npz"))):
+            pair, back = os.path.join(tmp, f"{label}_pair"), os.path.join(tmp, f"{label}_back.npz")
+            run_cli(["convert", "--to-reference", pair, "--bank", src], EXAMPLE)
+            run_cli(["convert", "--from-reference", pair, "--bank", back], EXAMPLE)
+            orig, got = TemplateBank.load(src), TemplateBank.load(back)
+            fields = [f for f in vars(orig) if isinstance(getattr(orig, f), np.ndarray)]
+            check(got.class_id == orig.class_id and got.dual_modality == orig.dual_modality
+                  and len(fields) == (13 if orig.dual_modality else 9), f"convert {label}: bank fields")
+            for f in fields:
+                # the .bin keeps medianDepth as uint16
+                want = np.round(orig.median_depth) if f == "median_depth" else getattr(orig, f)
+                check(np.array_equal(getattr(got, f), want), f"convert {label}: {f} differs after the round trip")
+            if label == "color":
+                ref_pair = np.load(PAIR_REF)
+                with gzip.open(os.path.join(pair, "linemod_templates.yml.gz"), "rb") as f:
+                    check(f.read() == ref_pair["text"].tobytes(), "exported YAML differs from the golden pair")
+                with open(os.path.join(pair, "linemod_tempPosFile.bin"), "rb") as f:
+                    check(f.read() == ref_pair["bin"].tobytes(), "exported .bin differs from the golden pair")
+                golden_pair = os.path.join(tmp, "golden_pair")
+                os.makedirs(golden_pair)
+                with gzip.open(os.path.join(golden_pair, "linemod_templates.yml.gz"), "wb") as f:
+                    f.write(ref_pair["text"].tobytes())
+                with open(os.path.join(golden_pair, "linemod_tempPosFile.bin"), "wb") as f:
+                    f.write(ref_pair["bin"].tobytes())
+                run_cli(["convert", "--from-reference", golden_pair, "--bank", os.path.join(tmp, "golden.npz")],
+                        EXAMPLE)
+                imported = TemplateBank.load(os.path.join(tmp, "golden.npz"))
+                for f in fields:
+                    check(np.array_equal(getattr(imported, f), getattr(got, f)), f"golden pair import: {f} differs")
+        phase(10, f"cli convert: the color and dual banks round-trip through the reference pair (every array "
+                  f"equal, median depth to its uint16 rounding), the export equals the JAX golden pair's text and "
+                  f"bytes, and the golden pair imports to the npz bank; {time.perf_counter() - t0:.1f} s host")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the synthetic accuracy protocol: 30 frames a mode x 4 modes
+    det = proto.detector()
+    timer = StageTimer(sync=True, device=dev)
+    records = {}
+    reset()
+    t0 = time.perf_counter()
+    for mode in MODES:
+        det.settings = mode_settings(proto.settings, mode)
+        records[mode] = [proto.run_frame(det, i, mode, timer) for i in range(SYNTH_FRAMES)]
+    wall = time.perf_counter() - t0
+    n = len(MODES) * SYNTH_FRAMES
+    launches["accuracy"] = per_frame("accuracy protocol", n)
+    worst = {"dt": 0.0, "dq": 0.0, "vsd": 0.0, "adds": 0.0}
+    for m, mode in enumerate(MODES):
+        for rec in records[mode]:
+            k = m * SYNTH_FRAMES + rec["frame"]
+            where = f"{mode} frame {rec['frame']}"
+            check(hashlib.sha256(rec["color"].tobytes()).hexdigest().encode() == synth["color_sha256"][k]
+                  and hashlib.sha256(rec["depth"].tobytes()).hexdigest().encode() == synth["depth_sha256"][k],
+                  f"{where}: the frame differs from JAX's")
+            check((rec["pose"] is not None) == bool(synth["detected"][k]), f"{where}: detected differs from JAX")
+            if rec["pose"] is None:
+                continue
+            for key, value in (("dt", np.abs(rec["pose"].translation - synth["translation"][k]).max()),
+                               ("dq", np.abs(rec["pose"].quaternion - synth["quaternion"][k]).max()),
+                               ("vsd", abs(rec["vsd"] - synth["vsd"][k])), ("adds", abs(rec["adds"] - synth["adds"][k]))):
+                worst[key] = max(worst[key], float(value))
+        stats = mode_stats(records[mode])
+        print(f"  {mode}: {stats['detected']}/{stats['frames']} detected, VSD pass {stats['vsd_pass']}, "
+              f"ADD-S pass {stats['adds_pass']}, both {stats['both_pass']}")
+    check(worst["dt"] <= 0.5 and worst["dq"] <= 1e-4, f"a pose differs from JAX's: {worst}")
+    check(worst["vsd"] <= SCORE_ATOL and worst["adds"] <= SCORE_ATOL, f"a score differs from JAX's: {worst}")
+    card_total = {k: sum(mode_stats(records[m])[k] for m in MODES) for k in ("detected", "vsd_pass", "adds_pass",
+                                                                              "both_pass")}
+    vsd_ok, adds_ok = synth["vsd"] < VSD_CORRECT, synth["adds"] <= OBJECT_DIAMETER
+    jax_total = {"detected": int(synth["detected"].sum()), "vsd_pass": int(vsd_ok.sum()),
+                 "adds_pass": int(adds_ok.sum()), "both_pass": int((vsd_ok & adds_ok).sum())}
+    with open(os.path.join(REPO, "ACCURACY_r05.json")) as f:
+        r05 = json.load(f)["total"]
+    phase(10, f"accuracy protocol, {n} frames: every frame equals JAX's byte for byte, the detected set is JAX's, "
+              f"max|dt| {worst['dt']:.3g} mm, max|dq| {worst['dq']:.3g}, max|dVSD| {worst['vsd']:.3g}, "
+              f"max|dADD-S| {worst['adds']:.3g}")
+    phase(10, "totals (detected, VSD pass, ADD-S pass, both) of 120: card "
+              + "/".join(str(card_total[k]) for k in card_total) + ", JAX CPU golden "
+              + "/".join(str(jax_total[k]) for k in jax_total) + ", ACCURACY_r05.json "
+              + "/".join(str(r05[k]) for k in card_total))
+    split = ", ".join(f"{name} {timer.totals[name] / timer.counts[name] * 1e3:.2f} ms x{timer.counts[name]}"
+                      for name in ("synthesis", "detect", "scoring"))
+    phase(10, f"accuracy protocol ms a frame: {wall / n * 1e3:.2f} wall; by stage (device synced at each "
+              f"stage's ends): {split}; 2.1 / 2.2 launches a frame {launches['accuracy']['coarse']:g} / "
+              f"{launches['accuracy']['fine']:g} ({card})")
+
+    # (e) depth-to-color registration at Kinect v2's shapes
+    ref = np.load(REG_REF)
+    depth = kinect_depth(int(ref["seed"]))
+    check(hashlib.sha256(depth.tobytes()).hexdigest().encode() == ref["depth_sha256"], "the Kinect input differs")
+    depth_t = torch.from_numpy(depth).to(dev)
+    cams = [torch.from_numpy(ref[k]).to(dev) for k in ("k_depth", "k_color", "rot", "trans")]
+    got = register_depth_to_color(depth_t, *cams).cpu().numpy().ravel()
+    want = np.zeros_like(got)
+    want[ref["index"]] = ref["value"]
+    differ = int((got != want).sum())
+    reg_ms = kernel_times(lambda: register_depth_to_color(depth_t, *cams), reps=20)
+    phase(10, f"register_depth_to_color 512x424 -> 1920x1080: {differ} of {got.size} pixels differ from JAX's "
+              f"({len(ref['index'])} covered); {fmt(reg_ms)} ({card})")
+    check(differ == 0, "the registration differs from JAX's")
     return launches
 
 
@@ -1290,7 +1568,10 @@ def main() -> int:
     gen_launches = generate_phase(dev, card, cam, settings, props,
                                   load_mesh(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply")), color, depth)
 
-    # -- phase 10: the probes
+    # -- phase 10: the command line, the accuracy protocol and registration
+    cli_launches = tooling_phase(dev, card, bank, float(dual_ref["color_vsd"]))
+
+    # -- phase 11: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -1323,12 +1604,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(10, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(11, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 11: results
+    # -- phase 12: results
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
@@ -1348,11 +1629,13 @@ def main() -> int:
         {**entry("coarse_scores", "similarity.cu", f"{pallas}:77", launches["coarse"], max(err_c, dual_err["coarse"]),
                  *times["coarse"], bounds["coarse"], library["coarse"]),
          "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
-         "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]}},
+         "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]},
+         "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()}},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
          "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
-         "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]}},
+         "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]},
+         "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()}},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
          "dual": dual("coarse_max", dual_launches["coarse_max"]),

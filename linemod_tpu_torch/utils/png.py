@@ -1,11 +1,12 @@
-"""PNG reading with the standard library's zlib and numpy.
+"""PNG reading and writing with the standard library's zlib and numpy.
 
 Reads the fixture frames without OpenCV: non-interlaced PNGs with filters
-0-4, 8-bit RGB color and 16-bit grayscale depth. Color comes back in **BGR**
-order, as `cv2.imread` returns it: the HSV color check reads BGR
-(linemod_tpu/ops/postprocess.py) and the gradient quantizer breaks exact
-channel ties by the first maximum, so the channel order is part of the
-result.
+0-4, 8-bit RGB color and 16-bit grayscale depth. `write_png` writes the same
+two formats (filter 0 on every row). Color is in **BGR** order on both
+sides, as `cv2.imread` returns it and `cv2.imwrite` takes it: the HSV color
+check reads BGR (linemod_tpu/ops/postprocess.py) and the gradient quantizer
+breaks exact channel ties by the first maximum, so the channel order is part
+of the result.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{path}: not a PNG file (the port decodes PNG images only)")
     pos = 8
     header = None
     idat = []
@@ -91,3 +92,27 @@ def read_png(path: str) -> np.ndarray:
     if channels == 1:
         return img[:, :, 0].astype(np.uint16)
     return np.ascontiguousarray(img[:, :, ::-1])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Encode BGR uint8 [H, W, 3] as 8-bit RGB, or uint16 [H, W] as 16-bit
+    gray, with filter 0 on every row."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        ctype, depth, rows = 2, 8, img[:, :, ::-1]
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        ctype, depth, rows = 0, 16, img.astype(">u2")
+    else:
+        raise ValueError(f"write_png takes BGR uint8 [H, W, 3] or uint16 [H, W], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1)
+    scanlines = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))

@@ -48,6 +48,10 @@ def test_port_imports_without_jax_cv2_yaml():
         "models.template_bank", "models.viewpoints", "ops.extract", "pipeline.template_generator",
         "utils.mesh_io")}
     assert generation <= set(result["modules"]), generation - set(result["modules"])
+    tooling = {"linemod_tpu_torch." + m for m in (
+        "cli", "tools.accuracy_eval", "pipeline.synth_eval", "pipeline.sensors", "ops.registration", "utils.io",
+        "utils.draw", "utils.profiling", "utils.refformat", "utils.yamlcv")}
+    assert tooling <= set(result["modules"]), tooling - set(result["modules"])
     assert result["loaded"] == []
 
 
