@@ -121,15 +121,37 @@ Drives the port's paths on the card and checks them, in phases:
    ACCURACY_r05.json's and its ms a frame split into synthesis, detect and
    scoring; `register_depth_to_color` at Kinect v2's shapes (512x424 into
    1920x1080) with 0 pixels differing from tests/goldens/registration_ref.npz,
-   and its ms. Each CLI path prints its 2.1 and 2.2 launches a frame;
-11. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+   and its ms; a Paeth-filtered 640x480 PNG decoded by `utils/png` (the
+   C++ unfilter), equal to its pixels, and its host ms. Each CLI path
+   prints its 2.1 and 2.2 launches a frame;
+11. the sharded path (`parallel/`, `sharded_phase`): three worlds of ranks
+   on cuda:0, each rank a process of this script (`--sharded-rank`):
+   (i) one rank on NCCL, (ii) two ranks on gloo, tp 2, (iii) four ranks on
+   gloo, dp 2 x tp 2 (NCCL takes one rank a GPU; gloo's collectives are
+   staged through pinned host memory, which is printed). On every rank the
+   fixture's packed [512, 5] equals tests/goldens/img0_torch_ref.npz and
+   its pose passes the gate (ADD <= 21 mm, VSD < 0.3); the 96,300 bank's
+   first 512 rows equal tests/goldens/img0_bigbank_ref.npz on the
+   prefiltered cut (proved exact, through `sharded_detect`) and on the
+   exact_only streaming matcher; at tp 2 the dual bank equals
+   tests/goldens/img0_dual_ref.npz; 2.1, 2.2 and 2.3 launch as each path
+   needs and no plain twin is called. Each launch's inputs and output are
+   kept, and after the path's run every one of them is held against its
+   plain twin on the same inputs (max|kernel - plain| 0, every launch of
+   every rank). Times (CUDA events, medians of 20):
+   the sharded frame a rank, the planes' band all-gather alone, and the
+   single-device detect_frame in the same call;
+12. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-12. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+13. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
    two-class shapes' numbers under `multi`, the launches of detection
-   with the card's generated color bank under `generated`, and phase 10's
-   launches a frame of each path under `cli_launches_a_frame`), then the
-   result line {"ok": true, "device": {...}} last.
+   with the card's generated color bank under `generated`, phase 10's
+   launches a frame of each path under `cli_launches_a_frame`, and phase
+   11's launches a frame a rank and max|kernel - plain| over the ranks
+   under `sharded`, by world and path), after a line of the seconds from
+   the start to each phase, then the result line {"ok": true, "device":
+   {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -206,7 +228,13 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+# seconds from the script's start to each phase's first line
+STARTED = time.perf_counter()
+PHASE_AT = {}
+
+
 def phase(n: int, text: str) -> None:
+    PHASE_AT.setdefault(n, time.perf_counter() - STARTED)
     print(f"[phase {n}] {text}", flush=True)
 
 
@@ -729,7 +757,7 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
     from linemod_tpu_torch.utils.draw import draw_coordinate_system, draw_features
     from linemod_tpu_torch.utils.geometry import quat_to_mat, rotation_about_axis
     from linemod_tpu_torch.utils.io import save_depth_linemod_dataset
-    from linemod_tpu_torch.utils.png import read_png, write_png
+    from linemod_tpu_torch.utils.png import encode_png, read_png, write_png
     from linemod_tpu_torch.utils.profiling import StageTimer
     from linemod_tpu_torch.utils.yamlcv import write_yamlcv
 
@@ -787,7 +815,7 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
         # each overlay reads back equal to the image drawn in memory
         det = proto.detector()
         for i in frames:
-            color_i, depth_i = read_png(os.path.join(seq, f"img{i}.png")), read_png(os.path.join(seq, f"depth{i}.png"))
+            color_i, depth_i = read_png(os.path.join(seq, f"img{i}.png"), "color"), read_png(os.path.join(seq, f"depth{i}.png"), "anydepth")
             dbg = DetectionDebug()
             drawn = color_i.copy()
             poses = det.detect(color_i, depth_i, 1, debug=dbg)
@@ -796,7 +824,7 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
                     draw_features(drawn, bank.feat0[t], bank.valid0[t], xy)
             for p in poses:
                 draw_coordinate_system(drawn, proto.cam, 75.0, p)
-            check(np.array_equal(read_png(os.path.join(display, f"det{i}.png")), drawn),
+            check(np.array_equal(read_png(os.path.join(display, f"det{i}.png"), "color"), drawn),
                   f"det{i}.png differs from the overlay drawn in memory")
         phase(10, f"the {len(frames)} overlays det*.png read back equal to the images drawn in memory")
 
@@ -811,7 +839,7 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
         os.makedirs(lm)
         shutil.copy(os.path.join(EXAMPLE, "benchmark", "img0.png"), os.path.join(lm, "color0.png"))
         save_depth_linemod_dataset(os.path.join(lm, "depth0.dpt"),
-                                   read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png")))
+                                   read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth"))
         gt0 = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
         rot_raw = rotation_about_axis([1.0, 0.0, 0.0], -np.pi / 2.0).T @ quat_to_mat(gt0.quaternion)
         with open(os.path.join(lm, "tra0.tra"), "w") as f:
@@ -930,6 +958,305 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
     phase(10, f"register_depth_to_color 512x424 -> 1920x1080: {differ} of {got.size} pixels differ from JAX's "
               f"({len(ref['index'])} covered); {fmt(reg_ms)} ({card})")
     check(differ == 0, "the registration differs from JAX's")
+
+    # (f) a PNG frame written with the Paeth filter on every row, decoded by
+    # utils/png (the C++ unfilter) on the host
+    rgb = np.random.default_rng(7).integers(0, 256, (480, 640, 3)).astype(np.uint8)
+    path = os.path.join(REPO, "build", "paeth.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb, 640, 2, 8, 4))
+    decoded = read_png(path, "color")
+    decode_ms = host_ms(lambda: read_png(path, "color"))
+    phase(10, f"a Paeth-filtered 640x480 color PNG decodes equal to its pixels: {np.array_equal(decoded, rgb[:, :, ::-1])}; "
+              f"{decode_ms[0]:.3f} ms (median of {REPS}, min {decode_ms[1]:.3f}; host clock)")
+    check(np.array_equal(decoded, rgb[:, :, ::-1]), "the Paeth frame decodes wrongly")
+    return launches
+
+
+# phase 11's worlds: (label, ranks, backend, dp), run one after the other on
+# cuda:0; NCCL takes one rank a GPU, so the worlds of several ranks on the
+# one card use gloo, whose collectives the port stages through pinned host
+# memory (parallel/sharded_match.transport)
+SHARDED_WORLDS = (("world1_nccl", 1, "nccl", 1), ("world2_gloo", 2, "gloo", 1), ("world4_gloo_dp2", 4, "gloo", 2))
+SHARDED_TIMEOUT_S = 240
+
+
+def sharded_rank(spec_json: str) -> int:
+    """Phase 11's rank: one process of a world on cuda:0 (started by
+    sharded_phase with MASTER_ADDR/MASTER_PORT, WORLD_SIZE and RANK set).
+    Runs the fixture (1,950 bank), the 96,300 bank (the prefiltered cut,
+    then the exact_only streaming matcher) and, at tp 2, the dual bank
+    through the sharded matcher, with each path's kernel launches, and
+    times the sharded frame, the planes' band all-gather and (rank 0) the
+    single-device detect_frame; writes rank<r>.npz into spec["out"]."""
+    import torch.distributed as dist
+
+    from linemod_tpu_torch.config import load_model_properties, load_settings
+    from linemod_tpu_torch.models.template_bank import TemplateBank, concat_banks, make_synthetic_bank
+    from linemod_tpu_torch.ops import matching as matching_mod
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+    from linemod_tpu_torch.ops.detect_core import _pack, detect_frame
+    from linemod_tpu_torch.parallel.distributed import initialize_distributed
+    from linemod_tpu_torch.parallel.mesh import make_mesh
+    from linemod_tpu_torch.parallel.sharded_match import (
+        all_gather,
+        make_sharded_matcher,
+        shard_state,
+        sharded_detect,
+        transport,
+    )
+    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection
+    from linemod_tpu_torch.utils.png import read_png
+
+    spec = json.loads(spec_json)
+    dev = initialize_distributed(backend=spec["backend"], device=torch.device("cuda", 0),
+                                 timeout_s=SHARDED_TIMEOUT_S)
+    rank = dist.get_rank()
+    mesh = make_mesh(dist.get_world_size(), dp=spec["dp"])
+
+    # the kernels as the matcher calls them (ops/matching's names), their
+    # plain twins, which refuse while the sharded path runs
+    kernels = ("coarse_scores", "fine_scores", "coarse_max")
+    plain = {name: getattr(sc, f"{name}_plain") for name in kernels}
+
+    def refuse(name):
+        def refusing(*args, **kwargs):
+            raise SmokeFailure(f"a sharded rank called {name}")
+        return refusing
+
+    def refuse_all():
+        for name in kernels:
+            setattr(sc, f"{name}_plain", refuse(f"{name}_plain"))
+
+    refuse_all()
+
+    def launched(fn):
+        """fn()'s result, the kernels' launches during it (2.1, 2.2, 2.3),
+        and each kernel's max|kernel - plain| over every launch: each call's
+        inputs and output are kept, and once fn has run the plain twins are
+        restored and given the same inputs on the card. Also the inputs'
+        shapes, kernel by kernel (the rows of off3 and of the output)."""
+        calls = []
+
+        def keep(name, kernel):
+            def wrapper(*args, **kwargs):
+                out = kernel(*args, **kwargs)
+                calls.append((name, args, out))
+                return out
+            return wrapper
+
+        sc.coarse_scores.launches = sc.fine_scores.launches = sc.coarse_max.launches = 0
+        for name in kernels:
+            setattr(matching_mod, name, keep(name, getattr(sc, name)))
+        try:
+            result = fn()
+            torch.cuda.synchronize()
+        finally:
+            for name in kernels:
+                setattr(matching_mod, name, getattr(sc, name))
+        counts = np.array([getattr(sc, name).launches for name in kernels])
+        err = np.zeros(3, np.int64)
+        compared = np.zeros(3, np.int64)
+        shapes = {name: [] for name in kernels}
+        for name in kernels:
+            setattr(sc, f"{name}_plain", plain[name])
+        try:
+            for name, args, out in calls:
+                i = kernels.index(name)
+                if out.numel():
+                    err[i] = max(err[i], max_abs_err(out, plain[name](*args)))
+                    compared[i] += 1
+                    shapes[name].append(f"{list(args[1].shape)}->{list(out.shape)}")
+        finally:
+            refuse_all()
+        check(np.array_equal(compared, counts), f"kernel launches {counts.tolist()}, calls compared with their "
+                                                f"plain versions {compared.tolist()}")
+        shapes = {name: sorted(set(v), key=v.index) for name, v in shapes.items()}
+        return result, counts, err, np.array(json.dumps(shapes))
+
+    def packed(out, proof):
+        keys = ("template_id", "x", "y", "similarity", "valid") + (("cut_exact",) if proof else ())
+        return _pack({k: out[k][0] for k in keys}).cpu().numpy()
+
+    cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
+    props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
+    bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
+    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
+    res = {"transport": np.array(transport(mesh.tp_group, dev))}
+
+    # the fixture: every dp row takes one copy of the frame
+    det = PoseDetection(bank, cam, settings, props, dev)
+    frames = np.stack([det.recenter(color)] * mesh.dp)
+    fast = make_sharded_matcher(shard_state(det.state, mesh), mesh)
+    out, res["fixture_launches"], res["fixture_err"], res["fixture_shapes"] = launched(lambda: fast(frames))
+    res["fixture_packed"] = packed(out, False)
+    res["fixture_ms"] = np.array(cuda_ms(lambda: fast(frames)))
+    # the planes' band all-gather alone, at both levels' band shapes
+    for level, shape, t in (("fine", det.state.fine_shape, 2), ("coarse", det.state.coarse_shape, 8)):
+        band = torch.zeros((8 * t * t + 1, shape[2] // mesh.tp, shape[3]), dtype=torch.uint8, device=dev)
+        res[f"gather_{level}_ms"] = np.array(cuda_ms(lambda b=band: all_gather(b, mesh.tp_group)))
+        res[f"gather_{level}_bytes"] = np.array(band.numel() * mesh.tp)
+
+    # the 96,300 bank: the prefiltered cut, then the exact streaming matcher
+    big_bank, _ = concat_banks([bank, make_synthetic_bank(94350, seed=7, bbox_wh=64, image_wh=(640, 480))])
+    det_big = PoseDetection(big_bank, cam, settings, props, dev)
+    big_state = shard_state(det_big.state, mesh)
+    fast_b = make_sharded_matcher(big_state, mesh)
+    exact_b = make_sharded_matcher(big_state, mesh, exact_only=True)
+    out, res["big_launches"], res["big_err"], res["big_shapes"] = launched(
+        lambda: sharded_detect(fast_b, exact_b, frames))
+    res["big_packed"] = packed(out, True)
+    out, res["big_exact_launches"], res["big_exact_err"], res["big_exact_shapes"] = launched(
+        lambda: exact_b(frames))
+    res["big_exact_packed"] = packed(out, True)
+    res["big_ms"] = np.array(cuda_ms(lambda: sharded_detect(fast_b, exact_b, frames)))
+    res["big_exact_ms"] = np.array(cuda_ms(lambda: exact_b(frames), reps=3))
+
+    if mesh.tp == 2:
+        det_dual = PoseDetection(TemplateBank.load(os.path.join(EXAMPLE, "banks_dual", "lagergehaeuse.npz")), cam,
+                                 dataclasses.replace(settings, only_color_modality=False), props, dev)
+        depths = np.stack([det_dual.recenter(depth).astype(np.float32)] * mesh.dp)
+        fast_d = make_sharded_matcher(shard_state(det_dual.state, mesh), mesh)
+        out, res["dual_launches"], res["dual_err"], res["dual_shapes"] = launched(
+            lambda: fast_d(frames, depths))
+        res["dual_packed"] = packed(out, False)
+        res["dual_ms"] = np.array(cuda_ms(lambda: fast_d(frames, depths)))
+
+    # the single-device frame program in the same call, on rank 0 alone
+    dist.barrier()
+    if rank == 0:
+        color_t = torch.from_numpy(frames[0]).to(dev)
+        res["single_ms"] = np.array(cuda_ms(lambda: detect_frame(det.state, color_t)))
+        big_t = torch.from_numpy(frames[0]).to(dev)
+        res["single_big_ms"] = np.array(cuda_ms(lambda: detect_frame(det_big.state, big_t)))
+    dist.barrier()
+    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_world(label: str, size: int, backend: str, dp: int, out: str) -> list:
+    """Start `size` ranks of sharded_rank on cuda:0 and wait for all of
+    them; a rank that fails or outlives SHARDED_TIMEOUT_S fails the check
+    with the tail of its log. Returns each rank's results."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(out, exist_ok=True)
+    spec = json.dumps({"backend": backend, "dp": dp, "out": out})
+    procs, logs = [], []
+    try:
+        for rank in range(size):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(size),
+                       RANK=str(rank), LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(size))
+            logs.append(open(os.path.join(out, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", spec],
+                                          env=env, cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        if p.returncode != 0:
+            failed.append(f"rank {rank} exited {p.returncode}:\n{log.read()[-3000:]}")
+        log.close()
+    check(not failed, f"{label}: " + "\n".join(failed))
+    return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(size)]
+
+
+def sharded_phase(card: str, ref, big_ref, dual_ref, pose_gate) -> dict:
+    """Phase 11: the sharded path (parallel/) in each of SHARDED_WORLDS on
+    the card. Every rank's fixture packed array equals the JAX reference
+    and its pose passes the gate (pose_gate(packed, label)); the 96,300
+    bank's first 512 rows equal its golden on the prefiltered cut (proved
+    exact) and on the exact streaming matcher; at tp 2 the dual bank equals
+    its golden; 2.1, 2.2 and 2.3 launch on every rank as each path needs.
+    Every launch on every rank is held against its plain version on the
+    same inputs (max|kernel - plain| 0). Returns, by world and path, rank
+    0's launches a frame and the largest error over the ranks, each
+    [2.1, 2.2, 2.3]."""
+    import shutil
+
+    root = os.path.join(REPO, "build", "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def same(got, want, rows, label):
+        ints = np.array_equal(got[:rows][:, [0, 1, 2, 4]], want[:rows][:, [0, 1, 2, 4]])
+        sim_err = float(np.abs(got[:rows, 3] - want[:rows, 3]).max())
+        check(ints and sim_err <= SIM_ATOL, f"{label}: packed differs from the JAX golden "
+                                            f"(ints equal {ints}, max|sim diff| {sim_err:.3g})")
+        return bool(np.array_equal(got[:rows], want[:rows]))
+
+    launches = {}
+    for label, size, backend, dp in SHARDED_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_world(label, size, backend, dp, os.path.join(root, label))
+        tp = size // dp
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        phase(11, f"{label}: {size} rank(s) on cuda:0, dp {dp} x tp {tp}, {backend}, collectives "
+                  f"{r0['transport']}; the world ran in {wall:.1f} s")
+        # the exact matcher streams each shard in chunks of at most 4,096
+        # templates, a divisor of the shard (candidate_cut_streaming)
+        n_shard = 96512 // tp
+        chunk = min(4096, n_shard)
+        while n_shard % chunk:
+            chunk -= 1
+        want = {"fixture": [1, 1, 0], "big": [1, 1, 1], "big_exact": [n_shard // chunk, 1, 0]}
+        if tp == 2:
+            want["dual"] = [1, 1, 0]
+        exact, errs = {}, {}
+        for r, res in enumerate(ranks):
+            for path, n in want.items():
+                got = res[f"{path}_launches"].tolist()
+                check(got == n, f"{label} rank {r} {path}: launches (2.1, 2.2, 2.3) {got}, want {n}")
+                err = res[f"{path}_err"].tolist()
+                check(max(err) == 0, f"{label} rank {r} {path}: max|kernel - plain| (2.1, 2.2, 2.3) {err}")
+                errs[path] = np.maximum(errs.get(path, 0), res[f"{path}_err"])
+            exact[r] = [same(res["fixture_packed"], ref["packed"], 512, f"{label} rank {r} fixture"),
+                        same(res["big_packed"], big_ref["packed"], 512, f"{label} rank {r} 96,300 bank"),
+                        same(res["big_exact_packed"], big_ref["packed"], 512, f"{label} rank {r} 96,300 exact")]
+            check(res["big_packed"].shape == (513, 5) and res["big_packed"][-1, 0] == 1.0,
+                  f"{label} rank {r}: the sharded prefiltered cut was not proved exact")
+            if tp == 2:
+                exact[r].append(same(res["dual_packed"], dual_ref["packed"], 512, f"{label} rank {r} dual"))
+            check(np.array_equal(res["fixture_packed"], r0["fixture_packed"]), f"{label}: ranks disagree")
+        phase(11, f"{label}: every rank's packed equals the JAX goldens (fixture [512, 5], the 96,300 bank's first "
+                  f"512 rows on the prefiltered cut, cut_exact 1, and on the exact streaming matcher"
+                  f"{', the dual bank' if tp == 2 else ''}); bit for bit by rank: {exact}")
+        phase(11, f"{label}: launches a frame a rank (2.1, 2.2, 2.3): " + ", ".join(
+            f"{path} {tuple(r0[f'{path}_launches'].tolist())}" for path in want))
+        phase(11, f"{label}: every launch of every rank held against its plain version on the same inputs, "
+                  f"max|kernel - plain| (2.1, 2.2, 2.3): " + ", ".join(
+                      f"{path} {tuple(errs[path].tolist())}" for path in want))
+        for path in want:
+            print(f"  {label} {path}, rank 0's kernel inputs (off3 rows -> output): "
+                  + "; ".join(f"{name} {', '.join(v)}" for name, v in json.loads(str(r0[f'{path}_shapes'])).items()
+                              if v))
+        pose_gate(r0["fixture_packed"], f"{label} fixture")
+        ms = {k: [float(res[k]) for res in ranks] for k in ("fixture_ms", "big_ms", "big_exact_ms",
+                                                            "gather_fine_ms", "gather_coarse_ms")}
+        if tp == 2:
+            ms["dual_ms"] = [float(res["dual_ms"]) for res in ranks]
+        phase(11, f"{label}: sharded ms a frame a rank (CUDA events, median of {REPS}; the exact matcher of 3): "
+                  + "; ".join(f"{k[:-3]} " + ", ".join(f"{v:.3f}" for v in vals) for k, vals in ms.items())
+                  + f"; planes' band all-gather of {int(r0['gather_fine_bytes'])} / "
+                    f"{int(r0['gather_coarse_bytes'])} B (fine / coarse, {r0['transport']}); "
+                    f"single-device detect_frame in the same call {float(r0['single_ms']):.3f} ms, 96,300 bank "
+                    f"{float(r0['single_big_ms']):.3f} ms ({card})")
+        launches[label] = {path: (r0[f"{path}_launches"].tolist(), errs[path].tolist()) for path in want}
     return launches
 
 
@@ -995,8 +1322,8 @@ def main() -> int:
     cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
     props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
     bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
-    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
-    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"))
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
+    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
     ref = np.load(TORCH_REF)
     big_ref = np.load(BIGBANK_REF)
     det = PoseDetection(bank, cam, settings, props, dev)
@@ -1571,7 +1898,15 @@ def main() -> int:
     # -- phase 10: the command line, the accuracy protocol and registration
     cli_launches = tooling_phase(dev, card, bank, float(dual_ref["color_vsd"]))
 
-    # -- phase 11: the probes
+    # -- phase 11: the sharded path, in worlds of 1, 2 and 4 ranks on the card
+    def pose_gate(packed_, label):
+        poses_ = det.detect_collect((torch.from_numpy(packed_), color_c, depth_c), 1)
+        check_pose(poses_, ref, label, 11)
+        check_vsd(poses_[0], dual_ref["color_vsd"], label, 11)
+
+    sharded = sharded_phase(card, ref, big_ref, dual_ref, pose_gate)
+
+    # -- phase 12: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -1604,12 +1939,19 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(11, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(12, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 12: results
+    # -- phase 13: results
+    def sharded_launches(i):
+        """Phase 11's launches a frame a rank of kernel i (2.1, 2.2, 2.3)
+        and its max|kernel - plain| over every rank's launches, by world and
+        path."""
+        return {world: {path: {"launches": n[i], "max_abs_err": e[i]} for path, (n, e) in paths.items()}
+                for world, paths in sharded.items()}
+
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": k_t[0],
@@ -1630,16 +1972,18 @@ def main() -> int:
                  *times["coarse"], bounds["coarse"], library["coarse"]),
          "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
          "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]},
-         "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()}},
+         "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()},
+         "sharded": sharded_launches(0)},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
          "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
          "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]},
-         "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()}},
+         "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()},
+         "sharded": sharded_launches(1)},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
          "dual": dual("coarse_max", dual_launches["coarse_max"]),
-         "icp": {"launches": icp_launches["coarse_max"]}},
+         "icp": {"launches": icp_launches["coarse_max"]}, "sharded": sharded_launches(2)},
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),
@@ -1649,6 +1993,8 @@ def main() -> int:
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
               *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
+    phase(13, "seconds from the start to each phase's first line: "
+              + ", ".join(f"{n} {t:.1f}" for n, t in sorted(PHASE_AT.items())))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1657,4 +2003,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sharded_rank(sys.argv[2]) if sys.argv[1:2] == ["--sharded-rank"] else main())

@@ -26,6 +26,19 @@ class CameraParameters:
     height: int = 480
     distortion: tuple = (0.0, 0.0, 0.0, 0.0, 0.0)
 
+    @property
+    def matrix(self) -> np.ndarray:
+        """The 3x3 float64 intrinsic matrix."""
+        return np.array(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=np.float64,
+        )
+
+    @property
+    def fov_y_deg(self) -> float:
+        """Vertical field of view from fy, in degrees."""
+        return float(np.degrees(2.0 * np.arctan(self.height / (2.0 * self.fy))))
+
 
 @dataclasses.dataclass(frozen=True)
 class TemplateSettings:

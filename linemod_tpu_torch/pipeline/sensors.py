@@ -30,13 +30,11 @@ def frame_paths(img_template: str, depth_template: str, i: int) -> tuple:
 
 def load_frame(img_path: str, depth_path: str) -> tuple:
     """(color, depth) of one frame on the host."""
-    color = read_png(img_path)
-    if color.ndim != 3:
-        raise ValueError(f"{img_path}: not an 8-bit color PNG")
+    color = read_png(img_path, "color")
     if depth_path.endswith(".dpt"):
         depth = load_depth_linemod_dataset(depth_path)
     else:
-        depth = read_png(depth_path)
+        depth = read_png(depth_path, "anydepth")
     return color, depth
 
 

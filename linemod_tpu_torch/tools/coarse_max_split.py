@@ -151,7 +151,7 @@ def fixture_states(dev, big: bool):
     if big:
         big_bank, _ = concat_banks([bank, make_synthetic_bank(94350, seed=7, bbox_wh=64, image_wh=(640, 480))])
         dets.append(PoseDetection(big_bank, cam, settings, props, dev))
-    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
     colorf = torch.from_numpy(dets[0].recenter(np.ascontiguousarray(color))).to(dev).float()
     planes = [_planes_3d(downsample2(colorf), d.state.cfg.t_coarse, d.state.max_cells_coarse) for d in dets]
     return dets[0], dets[1] if big else None, planes[0], planes[-1], colorf

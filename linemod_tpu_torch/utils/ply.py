@@ -1,4 +1,4 @@
-"""PLY mesh loader (ASCII and binary, either byte order).
+"""PLY mesh loader (ASCII and binary, either byte order) and ASCII writer.
 
 The port's own copy of `linemod_tpu/utils/ply.load_ply`, which replaces the
 reference's assimp import (src/ModelImporter.cpp:13-83): fills vertices,
@@ -161,3 +161,22 @@ def _read_binary(f, elements, endian):
             out[name] = {lname[3]: np.asarray(faces, dtype=np.uint32)}
     return out
 
+
+def save_ply(path: str, mesh: Mesh) -> None:
+    """Write an ASCII PLY (vertices, normals where the mesh has them, faces),
+    byte for byte as the JAX package's save_ply writes it."""
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {mesh.num_vertices}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if mesh.normals is not None:
+            f.write("property float nx\nproperty float ny\nproperty float nz\n")
+        f.write(f"element face {mesh.num_faces}\n")
+        f.write("property list uchar uint vertex_indices\nend_header\n")
+        for i in range(mesh.num_vertices):
+            row = list(mesh.vertices[i])
+            if mesh.normals is not None:
+                row += list(mesh.normals[i])
+            f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+        for tri in mesh.indices:
+            f.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n")

@@ -1,29 +1,94 @@
 """PNG reading and writing with the standard library's zlib and numpy.
 
-Reads the fixture frames without OpenCV: non-interlaced PNGs with filters
-0-4, 8-bit RGB color and 16-bit grayscale depth. `write_png` writes the same
-two formats (filter 0 on every row). Color is in **BGR** order on both
-sides, as `cv2.imread` returns it and `cv2.imwrite` takes it: the HSV color
-check reads BGR (linemod_tpu/ops/postprocess.py) and the gradient quantizer
-breaks exact channel ties by the first maximum, so the channel order is part
-of the result.
+Reads frames without OpenCV: every non-interlaced PNG that `cv2.imread`
+reads on the command line's path (gray, gray+alpha, RGB, RGBA and palette
+images, 1, 2, 4, 8 and 16 bits), converted as OpenCV converts them: a
+color frame (`mode="color"`, `cv2.IMREAD_COLOR`) becomes BGR uint8 with
+alpha and `tRNS` dropped, gray replicated, 16-bit samples cut to their high
+byte and 1/2/4-bit gray scaled to 0..255; a depth frame
+(`mode="anydepth"`, `cv2.IMREAD_ANYDEPTH`) is a gray image at its own
+depth, uint16 or uint8. The scanlines are unfiltered by the port's host
+C++ (`csrc/png_unfilter.cpp`, built with g++ at first use into `build/`
+and bound with ctypes); `_unfilter` is its plain numpy version, which the
+tests hold it to. `encode_png` writes any format with one chosen filter
+on every row; `write_png` writes 8-bit RGB and 16-bit gray with filter 0. Color is in **BGR** order on both sides, as `cv2.imread`
+returns it and `cv2.imwrite` takes it: the HSV color check reads BGR
+(ops/postprocess.py) and the gradient quantizer breaks exact channel ties
+by the first maximum, so the channel order is part of the result.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import struct
+import subprocess
+import threading
 import zlib
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (color type, bit depth) -> (channels, dtype)
-_FORMATS = {(2, 8): (3, np.uint8), (0, 16): (1, np.dtype(">u2"))}
+# color type -> samples a pixel; the bit depths each color type allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# gray of 1, 2 or 4 bits -> 0..255, as libpng's expand_gray_1_2_4_to_8
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17}
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_unfilter.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "host")
+_CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_lock = threading.Lock()
+_library = []
+
+
+def _load_unfilter():
+    """The C++ unfilter, built by g++ into build/host/ once per source
+    version (the file name carries a hash of the source and flags). A
+    failed build raises."""
+    with _lock:
+        if _library:
+            return _library[0]
+        with open(_SOURCE, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
+        path = os.path.join(_BUILD_DIR, f"png_unfilter-{digest}.so")
+        if not os.path.exists(path):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            out = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SOURCE], capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"g++ failed on {_SOURCE}:\n{out.stdout}{out.stderr}")
+            os.replace(tmp, path)
+        fn = ctypes.CDLL(path).png_unfilter
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _library.append(fn)
+        return fn
+
+
+def _check_raw(raw: bytes, h: int, row_bytes: int) -> None:
+    if len(raw) < h * (row_bytes + 1):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, {h} rows of {row_bytes + 1} need more")
+
+
+def unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters -> [h, row_bytes] u8, in C++.
+    bpp: bytes a complete pixel, at least 1."""
+    _check_raw(raw, h, row_bytes)
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty((h, row_bytes), np.uint8)
+    bad = _load_unfilter()(src.ctypes.data, h, row_bytes, bpp, out.ctypes.data)
+    if bad:
+        raise ValueError(f"bad PNG filter type {src[(bad - 1) * (row_bytes + 1)]} in row {bad - 1}")
+    return out
 
 
 def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters (PNG spec section 9) -> [h, row_bytes] u8."""
-    data = np.frombuffer(raw, np.uint8).reshape(h, row_bytes + 1)
+    """The plain numpy version of `unfilter` (PNG spec section 9)."""
+    _check_raw(raw, h, row_bytes)
+    data = np.frombuffer(raw, np.uint8)[: h * (row_bytes + 1)].reshape(h, row_bytes + 1)
     out = np.zeros((h, row_bytes), np.uint8)
     prev = np.zeros(row_bytes, np.uint8)
     for y in range(h):
@@ -58,14 +123,35 @@ def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode a PNG: 8-bit RGB -> BGR uint8 [H, W, 3]; 16-bit gray -> uint16 [H, W]."""
+def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, row_bytes] -> samples [h, w, channels], uint8 for
+    1-8 bits (sub-byte samples unpacked, most significant bits first) or
+    uint16 for 16 bits."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, channels)
+    if depth == 8:
+        return rows.reshape(h, w, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # first sample in the high bits
+    unpacked = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return unpacked.reshape(h, -1)[:, :w].reshape(h, w, 1)
+
+
+def read_png(path: str, mode: str) -> np.ndarray:
+    """Decode a non-interlaced PNG as cv2.imread does.
+
+    mode "color" (cv2.IMREAD_COLOR): BGR uint8 [H, W, 3] from any format;
+    "anydepth" (cv2.IMREAD_ANYDEPTH): a gray image as [H, W] uint16 (16
+    bits) or uint8 (the others; gray+alpha drops the alpha), and a
+    ValueError for a color or palette image."""
+    if mode not in ("color", "anydepth"):
+        raise ValueError(f"unknown PNG read mode {mode!r}")
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file (the port decodes PNG images only)")
     pos = 8
-    header = None
+    header = palette = None
     idat = []
     while pos < len(blob):
         (n,) = struct.unpack(">I", blob[pos : pos + 4])
@@ -74,6 +160,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -83,19 +171,63 @@ def read_png(path: str) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if interlace:
         raise ValueError(f"{path}: interlaced PNGs are not supported")
-    if (ctype, depth) not in _FORMATS:
+    if depth not in _DEPTHS.get(ctype, ()):
         raise ValueError(f"{path}: unsupported color type {ctype} at {depth} bits")
-    channels, dtype = _FORMATS[(ctype, depth)]
-    bpp = channels * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    img = rows.view(dtype).reshape(h, w, channels)
-    if channels == 1:
-        return img[:, :, 0].astype(np.uint16)
-    return np.ascontiguousarray(img[:, :, ::-1])
+    gray = ctype in (0, 4)
+    if mode == "anydepth" and not gray:
+        raise ValueError(f"{path}: a depth frame must be a gray PNG, got color type {ctype}")
+    channels = _CHANNELS[ctype]
+    row_bytes = -(-w * channels * depth // 8)
+    rows = unfilter(zlib.decompress(b"".join(idat)), h, row_bytes, max(1, channels * depth // 8))
+    px = _samples(rows, w, channels, depth)
+    if ctype == 3:  # palette indices -> RGB; indices past the palette read black, as libpng's
+        if palette is None:
+            raise ValueError(f"{path}: a palette image without a PLTE chunk")
+        full = np.zeros((256, 3), np.uint8)
+        full[: len(palette)] = palette[:256]
+        px = full[px[:, :, 0]]
+    elif gray and depth < 8:
+        px = px * np.uint8(_GRAY_SCALE[depth])
+    if mode == "anydepth":
+        return np.ascontiguousarray(px[:, :, 0])
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    if gray:
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, 2::-1])
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png(rows, w: int, ctype: int, depth: int, ftype: int = 0, chunks=(), interlace: int = 0) -> bytes:
+    """A PNG of w pixels a row whose scanlines' packed bytes are `rows`
+    [H, row_bytes], with filter type `ftype` (0-4) on every scanline;
+    `chunks` are (kind, body) pairs written before the data (PLTE, tRNS).
+    `interlace` goes into the header only: the data stays in row order (a
+    file that readers of non-interlaced PNGs must refuse)."""
+    h = rows.shape[0]
+    raw = np.asarray(rows).reshape(h, -1).astype(np.uint8, copy=False)
+    if ftype:
+        bpp = max(1, _CHANNELS[ctype] * depth // 8)
+        raw = raw.astype(np.int64)
+        left = np.pad(raw[:, :-bpp], ((0, 0), (bpp, 0)))
+        up = np.pad(raw[:-1], ((1, 0), (0, 0)))
+        pred = [left, up, (left + up) >> 1, _paeth(left, up, np.pad(up[:, :-bpp], ((0, 0), (bpp, 0))))][ftype - 1]
+        raw = ((raw - pred) & 255).astype(np.uint8)
+    scanlines = np.concatenate([np.full((h, 1), ftype, np.uint8), raw], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)
+    return (
+        _SIGNATURE + _chunk(b"IHDR", ihdr) + b"".join(_chunk(k, b) for k, b in chunks)
+        + _chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6)) + _chunk(b"IEND", b"")
+    )
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -109,10 +241,5 @@ def write_png(path: str, img: np.ndarray) -> None:
     else:
         raise ValueError(f"write_png takes BGR uint8 [H, W, 3] or uint16 [H, W], got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    raw = np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1)
-    scanlines = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(encode_png(np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1), w, ctype, depth))

@@ -59,14 +59,14 @@ def linemod_sequence(root, ext: str = ".png") -> str:
 
     seq = os.path.join(str(root), "benchmarkLINEMOD")
     os.makedirs(seq, exist_ok=True)
-    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
     if ext == ".png":
         write_png(os.path.join(seq, "color0.png"), color)
     else:
         import cv2
 
         cv2.imwrite(os.path.join(seq, "color0" + ext), color)
-    save_depth_linemod_dataset(os.path.join(seq, "depth0.dpt"), read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png")))
+    save_depth_linemod_dataset(os.path.join(seq, "depth0.dpt"), read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth"))
     gt = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
     rot_raw = rotation_about_axis([1.0, 0.0, 0.0], -np.pi / 2.0).T @ quat_to_mat(gt.quaternion)
     with open(os.path.join(seq, "tra0.tra"), "w") as f:
@@ -141,9 +141,9 @@ def test_detect_overlay_equals_jax(runs):
 
     port = os.path.join(str(runs["tmp"]), "display_port", "det0.png")
     want = cv2.imread(os.path.join(str(runs["tmp"]), "display_jax", "det0.png"))
-    assert np.array_equal(read_png(port), want)
+    assert np.array_equal(read_png(port, "color"), want)
     assert np.array_equal(cv2.imread(port), want)
-    assert not np.array_equal(want, read_png(os.path.join(EXAMPLE, "benchmark", "img0.png")))
+    assert not np.array_equal(want, read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color"))
 
 
 @pytest.mark.parametrize("command", ["evaluate", "detect"])
@@ -266,7 +266,7 @@ def test_write_png_reads_back(tmp_path, kind):
         img, flag = rng.integers(0, 65536, (45, 67), dtype=np.uint16), cv2.IMREAD_ANYDEPTH
     path = str(tmp_path / f"{kind}.png")
     write_png(path, img)
-    assert np.array_equal(read_png(path), img)
+    assert np.array_equal(read_png(path, "color" if kind == "color" else "anydepth"), img)
     assert np.array_equal(cv2.imread(path, flag), img)
     with pytest.raises(ValueError):
         write_png(path, img.astype(np.float32))
@@ -305,7 +305,7 @@ def test_overlays_equal_jax():
     cam, _ = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
     bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
     pose = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
-    img = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
+    img = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
     got, want = img.copy(), img.copy()
     for t, xy in ((5, (250, 200)), (700, (600, 450)), (1949, (-10, 3))):
         draw_features(got, bank.feat0[t], bank.valid0[t], xy)

@@ -113,7 +113,7 @@ def test_quantize_normals_equals_jax_on_synthetic_depth(seed):
 def test_quantize_normals_equals_jax_on_fixture_depth(level):
     from linemod_tpu_torch.utils.png import read_png
 
-    depth = read_png(_fixture_files()["depth0"]).astype(np.float32)
+    depth = read_png(_fixture_files()["depth0"], "anydepth").astype(np.float32)
     if level:
         depth = np.ascontiguousarray(depth[::2, ::2])
     (q, mag2), (jq, jmag2) = _normals_pair(depth)
@@ -358,7 +358,7 @@ def dual_fixture():
     cam, settings = load_settings(f["settings"])
     settings = dataclasses.replace(settings, only_color_modality=False)
     det = PoseDetection(TemplateBank.load(DUAL_BANK), cam, settings, load_model_properties(f["model"]), "cpu")
-    color, depth = read_png(f["img0"]), read_png(f["depth0"])
+    color, depth = read_png(f["img0"], "color"), read_png(f["depth0"], "anydepth")
     handle = det.detect_submit(color, depth)
     packed = handle[0].numpy()
     return det, packed, det.detect_collect(handle, 1), color, depth

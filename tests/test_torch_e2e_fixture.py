@@ -94,8 +94,8 @@ def torch_side():
         TemplateBank.load(f["bank"]), cam, settings, load_model_properties(f["model"]),
         device="cpu",
     )
-    color = read_png(f["img0"])
-    depth = read_png(f["depth0"])
+    color = read_png(f["img0"], "color")
+    depth = read_png(f["depth0"], "anydepth")
     handle = det.detect_submit(color, depth)
     packed = handle[0].numpy()
     poses = det.detect_collect(handle, 1)
@@ -218,7 +218,7 @@ def test_torch_quantized_levels_equal_reference(jax_side, torch_side):
 
     ref = jax_side[0]
     det, _, _ = torch_side
-    color_c = det.recenter(read_png(_fixture_files()["img0"]))
+    color_c = det.recenter(read_png(_fixture_files()["img0"], "color"))
     colorf = torch.from_numpy(color_c).float()
     np.testing.assert_array_equal(quantize_color_gradients(colorf)[0].numpy(), ref["quant0"])
     np.testing.assert_array_equal(

@@ -89,7 +89,7 @@ def test_scene_cloud_equals_jax(pose0, scene):
     if scene == "depth0":
         from linemod_tpu_torch.utils.png import read_png
 
-        depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"))  # cx, cy at the centre
+        depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")  # cx, cy at the centre
         bbox = (276, 246, 93, 88)
     (pts, nrm, valid), (jpts, jnrm, jvalid) = _clouds(depth, bbox, cam)
     assert int(jvalid.sum()) > 1000

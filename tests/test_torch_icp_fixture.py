@@ -187,7 +187,7 @@ def port():
     mesh = load_ply(f["model"])
     return (cam, dataclasses.replace(settings, use_icp=True), TemplateBank.load(f["bank"]),
             load_model_properties(f["model"]), mesh, mesh_to_arrays(mesh, "cpu"),
-            read_png(f["img0"]), read_png(f["depth0"]))
+            read_png(f["img0"], "color"), read_png(f["depth0"], "anydepth"))
 
 
 def _detector(port, use_icp=True, sample_step=None, iterations=None):
@@ -246,7 +246,7 @@ def test_icp_scene_cloud_equals_golden(icp_on, golden):
 def _fixture_depth():
     from linemod_tpu_torch.utils.png import read_png
 
-    return read_png(_fixture_files()["depth0"])
+    return read_png(_fixture_files()["depth0"], "anydepth")
 
 
 def test_icp_one_iteration_equals_golden(icp_on, golden):

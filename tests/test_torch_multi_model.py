@@ -318,8 +318,8 @@ def test_fixture_two_classes_equal_golden():
                                   {"lagergehaeuse": load_model_properties(model), "synthetic": ModelProperties()},
                                   "cpu")
     assert det.state.n_templates == 4096 and det.state.cfg.top_k == 1024
-    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
-    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"))
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
+    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
     handle = det.detect_submit(color, depth)
     packed = handle[0].numpy()
     assert packed.shape == golden["packed"].shape == (1024, 5)

@@ -1,8 +1,8 @@
 """The PyTorch port must run where JAX, OpenCV, PyYAML and the JAX package
 are not installed: importing every module of `linemod_tpu_torch` (in a
 fresh interpreter, with imports of those four blocked) must neither need
-nor load them, and no source of the port or of chip_smoke.py may import
-them. A name is blocked by its first dotted component, so
+nor load them, and no source of the port or of chip_smoke.py (whose
+phase-11 rank runs in its own interpreter) may import them. A name is blocked by its first dotted component, so
 `linemod_tpu_torch` itself is not."""
 
 import json
@@ -32,6 +32,7 @@ import linemod_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(linemod_tpu_torch.__path__, "linemod_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import chip_smoke  # its phase-11 ranks run `chip_smoke.py --sharded-rank` in fresh interpreters
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and m.split(".")[0] not in preloaded)
 print(json.dumps({"modules": names, "loaded": loaded}))
 """
@@ -52,6 +53,8 @@ def test_port_imports_without_jax_cv2_yaml():
         "cli", "tools.accuracy_eval", "pipeline.synth_eval", "pipeline.sensors", "ops.registration", "utils.io",
         "utils.draw", "utils.profiling", "utils.refformat", "utils.yamlcv")}
     assert tooling <= set(result["modules"]), tooling - set(result["modules"])
+    sharding = {"linemod_tpu_torch.parallel." + m for m in ("mesh", "distributed", "sharded_match")}
+    assert sharding <= set(result["modules"]), sharding - set(result["modules"])
     assert result["loaded"] == []
 
 
@@ -85,6 +88,12 @@ def _blocked_imports(path):
 def test_port_sources_never_import_jax():
     sources = list(_port_sources())
     assert len(sources) >= 20 and os.path.exists(sources[-1])
+    # the scan of chip_smoke.py covers its phase-11 rank, which imports the
+    # sharding modules in its own interpreter
+    with open(sources[-1]) as fh:
+        assert "\ndef sharded_rank(" in fh.read()
+    assert {"mesh.py", "distributed.py", "sharded_match.py"} <= {
+        os.path.basename(p) for p in sources if os.path.basename(os.path.dirname(p)) == "parallel"}
     for path in sources:
         assert _blocked_imports(path) == [], path
 

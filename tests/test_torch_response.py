@@ -28,7 +28,7 @@ def fixture_color():
 
     # the fixture camera's principal point is the image centre: recentring
     # is the identity on this frame
-    return read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"))
+    return read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
 
 
 @pytest.mark.parametrize("shape", [(120, 160, 3), (121, 163, 3), (60, 81)])
