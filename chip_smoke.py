@@ -141,17 +141,35 @@ Drives the port's paths on the card and checks them, in phases:
    every rank). Times (CUDA events, medians of 20):
    the sharded frame a rank, the planes' band all-gather alone, and the
    single-device detect_frame in the same call;
-12. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+12. the host-side ingest routes (`ingest_phase`): the card host's g++,
+   glibc and core count; `utils/native.quantize_frame` (the port's copy of
+   native/quantize.cpp, built here) on the fixture frame against the
+   golden's maps, and on a seeded frame where the reference's host and
+   device quantizers disagree, at the reference's pixels; then, each
+   kernel launch kept with its inputs and held against its plain twin, the
+   packed arrays against the JAX goldens of `detect_frame_quant` (the 1,950
+   and 96,300 banks), `detect_frame_delta`, `detect_frame_dual_delta` (the
+   dual bank), `detect_frames_batch_delta` (3 frames: the golden's, and
+   each the default route's) and the `approx_topk` and `guarded_cut` cuts
+   (which also equal the exact cut on a sparse frame, where the guard
+   passes); `PoseDetection(host_quant=True)` and `delta_transport` give the
+   default route's pose. Times: `quantize_frame` and `delta_encode_host` on
+   the host, `detect_frame` / `_quant` / `_delta` (CUDA events, medians of
+   20, in turns) with their device operations a frame (torch.profiler),
+   whole `detect` by route, and `cli detect` over a 20-frame PNG sequence
+   with the prefetching loader and with FileSequenceSource, in turns;
+13. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-13. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+14. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
    two-class shapes' numbers under `multi`, the launches of detection
    with the card's generated color bank under `generated`, phase 10's
-   launches a frame of each path under `cli_launches_a_frame`, and phase
+   launches a frame of each path under `cli_launches_a_frame`, phase
    11's launches a frame a rank and max|kernel - plain| over the ranks
-   under `sharded`, by world and path), after a line of the seconds from
-   the start to each phase, then the result line {"ok": true, "device":
-   {...}} last.
+   under `sharded`, by world and path, and phase 12's launches a frame and
+   max|kernel - plain| under `quant`, `delta` and `cut_opt_ins`, by path),
+   after a line of the seconds from the start to each phase, then the
+   result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Each path resets the kernels' launch counts just before it runs and
@@ -1260,6 +1278,243 @@ def sharded_phase(card: str, ref, big_ref, dual_ref, pose_gate) -> dict:
     return launches
 
 
+# phase 12: a seeded frame on which the reference's host quantizer
+# (native/quantize.cpp) and its device quantizer disagree, and where, as
+# (level, row, column, host value, device value); tests/test_torch_native.py
+# pins the same pixels against JAX on the CPU. The card host's build of the
+# port's copy must give the reference's host values there.
+DISAGREEING_SEED = 249
+DISAGREEING_PIXELS = [(0, 44, 19, 0, 64), (0, 44, 20, 0, 64), (1, 6, 9, 128, 0), (1, 6, 10, 128, 0)]
+# frames of the PNG sequence phase 12 times `cli detect` over
+CLI_SEQUENCE_FRAMES = 20
+
+
+def kept_launches(fn):
+    """fn()'s result, each kernel's launches during it (2.1, 2.2, 2.3) and
+    its max|kernel - plain| over them: every call through ops/matching's
+    names keeps its inputs and output, and once fn has run each plain twin
+    is given the same inputs on the card."""
+    from linemod_tpu_torch.ops import matching as matching_mod
+    from linemod_tpu_torch.ops import similarity_cuda as sc
+
+    names = ("coarse_scores", "fine_scores", "coarse_max")
+    calls = []
+
+    def keep(name, kernel):
+        def wrapper(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            calls.append((name, args, out))
+            return out
+        return wrapper
+
+    for name in names:
+        getattr(sc, name).launches = 0
+        setattr(matching_mod, name, keep(name, getattr(sc, name)))
+    try:
+        result = fn()
+        torch.cuda.synchronize()
+    finally:
+        for name in names:
+            setattr(matching_mod, name, getattr(sc, name))
+    launches = {name: getattr(sc, name).launches for name in names}
+    err = dict.fromkeys(names, 0)
+    compared = dict.fromkeys(names, 0)
+    for name, args, out in calls:
+        err[name] = max(err[name], max_abs_err(out, getattr(sc, f"{name}_plain")(*args)))
+        compared[name] += 1
+    check(compared == launches, f"launches {launches}, calls held against their plain versions {compared}")
+    return result, launches, err
+
+
+def first_line(cmd: list) -> str:
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{cmd[0]}: {e}"
+    return (out.stdout or out.stderr).strip().splitlines()[0]
+
+
+def cli_sequence_ms(dev, seq: str, frame_source) -> dict:
+    """`cli detect --profile` over the PNG sequence in `seq`, with the CLI's
+    frame source replaced by `frame_source` when given: the mean line's ms
+    and the decode and detect stages' ms a call."""
+    from linemod_tpu_torch import cli
+
+    real = cli._frame_source
+    if frame_source is not None:
+        cli._frame_source = frame_source
+    try:
+        out = run_cli(["detect", "--model", "lagergehaeuse.ply", "--images", os.path.join(seq, "img%d.png"),
+                       "--depths", os.path.join(seq, "depth%d.png"), "--profile", "--device", str(dev)], EXAMPLE)
+    finally:
+        cli._frame_source = real
+    lines = out.splitlines()
+    check(lines[CLI_SEQUENCE_FRAMES].startswith(f"{CLI_SEQUENCE_FRAMES} frames, mean "), "cli detect: no mean line")
+    stages = {line.split()[0]: float(line.split()[4]) for line in lines[CLI_SEQUENCE_FRAMES + 1:]}
+    return {"mean": float(lines[CLI_SEQUENCE_FRAMES].split()[3]), "decode": stages["decode"],
+            "detect": stages["detect"]}
+
+
+def ingest_phase(dev, card: str, det, det_big, det_dual, refs: dict, color, depth, check_pose) -> dict:
+    """Phase 12: the host-side ingest routes on the card. Returns each
+    path's kernel launches and max|kernel - plain|, by path."""
+    import shutil
+    import tempfile
+
+    from linemod_tpu_torch.ops.detect_core import (
+        delta_encode_host,
+        detect_frame,
+        detect_frame_delta,
+        detect_frame_dual_delta,
+        detect_frame_quant,
+        detect_frames_batch_delta,
+    )
+    from linemod_tpu_torch.ops.extract import downsample2
+    from linemod_tpu_torch.ops.gradients import quantize_color_gradients
+    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection
+    from linemod_tpu_torch.pipeline.sensors import FileSequenceSource
+    from linemod_tpu_torch.utils.native import quantize_frame
+
+    ref, big_ref, dual_ref = refs["fixture"], refs["96300"], refs["dual"]
+    host = (f"os.cpu_count() {os.cpu_count()}; {first_line(['ldd', '--version'])}; "
+            f"{first_line(['g++', '--version'])}")
+    phase(12, f"the card's host: {host}")
+    where = f"{card}; os.cpu_count() {os.cpu_count()}"
+
+    # the host quantizer, built by g++ here: the fixture's maps against the
+    # golden's (JAX's), and the reference's disagreeing pixels
+    color_c = det.recenter(np.ascontiguousarray(color))
+    depth_c = det.recenter(np.ascontiguousarray(depth))
+    t0 = time.perf_counter()
+    q0, q1 = quantize_frame(color_c)
+    build_s = time.perf_counter() - t0
+    mism = [int((q0 != ref["quant0"]).sum()), int((q1 != ref["quant1"]).sum())]
+    drawn = np.clip(np.random.default_rng(DISAGREEING_SEED).normal(128, 40, (48, 64, 3)), 0, 255).astype(np.uint8)
+    h_maps = quantize_frame(drawn)
+    drawn_f = torch.from_numpy(drawn).to(dev).float()
+    d_maps = [quantize_color_gradients(drawn_f)[0].cpu().numpy(),
+              quantize_color_gradients(downsample2(drawn_f))[0].cpu().numpy()]
+    pixels = [(lv, int(y), int(x), int(h_maps[lv][y, x]), int(d_maps[lv][y, x]))
+              for lv in (0, 1) for y, x in np.argwhere(h_maps[lv] != d_maps[lv])]
+    q_ms = host_ms(lambda: quantize_frame(color_c))
+    e_ms = host_ms(lambda: delta_encode_host(color_c))
+    phase(12, f"quantize_frame (csrc/quantize.cpp, g++ at first use, {build_s:.2f} s with the build): fixture maps "
+              f"vs golden {mism[0]} of {q0.size} level-0 and {mism[1]} of {q1.size} level-1 pixels differ; the "
+              f"pinned frame's host/device disagreements {pixels} (the reference's: {DISAGREEING_PIXELS}); "
+              f"{q_ms[0]:.3f} ms a 640x480 frame (median of {REPS}, min {q_ms[1]:.3f}; host clock); "
+              f"delta_encode_host {e_ms[0]:.3f} ms ({where})")
+    check(mism == [0, 0], "the card host's quantize_frame differs from the golden maps")
+    check(pixels == DISAGREEING_PIXELS, "the card host's quantize_frame is not the reference's on the pinned frame")
+
+    # each route's device program, every kernel launch held against its plain
+    # version; the packed arrays against the JAX goldens
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    q0_t, q1_t = up(q0), up(q1)
+    delta_t, color_t = up(delta_encode_host(color_c)), up(color_c)
+    depth_t = up(det_dual.recenter(np.ascontiguousarray(depth)).astype(np.float32))
+    sparse = np.full_like(color_c, 128)
+    sparse[237:261, 264:288] = color_c[237:261, 264:288]
+    batch = [color_c, np.roll(color_c, (9, -14), (0, 1)), sparse]
+    state = det.state
+    opt_state = {opt: dataclasses.replace(state, cfg=dataclasses.replace(state.cfg, **{opt: True}))
+                 for opt in ("approx_topk", "guarded_cut")}
+    paths = {
+        "quant": (lambda: detect_frame_quant(state, q0_t, q1_t), ref["packed"], 1),
+        "quant 96,300": (lambda: detect_frame_quant(det_big.state, q0_t, q1_t), big_ref["packed"], 1),
+        "delta": (lambda: detect_frame_delta(state, delta_t), ref["packed"], 1),
+        "dual delta": (lambda: detect_frame_dual_delta(det_dual.state, delta_t, depth_t), dual_ref["packed"], 1),
+        "batch delta": (lambda: detect_frames_batch_delta(state, up(np.stack([delta_encode_host(c) for c in batch]))),
+                        None, 3),
+        "approx_topk": (lambda: detect_frame(opt_state["approx_topk"], color_t), ref["packed"], 1),
+        "guarded_cut": (lambda: detect_frame(opt_state["guarded_cut"], color_t), ref["packed"], 1),
+    }
+    results = {}
+    for label, (fn, want, frames) in paths.items():
+        got, launches, err = kept_launches(fn)
+        got = got.cpu().numpy()
+        if want is None:  # the batch: frame 0 the golden's, each frame the default route's
+            defaults = [detect_frame(state, up(c)).cpu().numpy() for c in batch]
+            ok = all(np.array_equal(g, d) for g, d in zip(got, defaults))
+            got, want = got[0], ref["packed"]
+            ok = ok and got.shape == want.shape
+        else:
+            ok = got.shape == want.shape
+        ok = ok and np.array_equal(got[:, [0, 1, 2, 4]], want[:, [0, 1, 2, 4]])
+        sim_err = float(np.abs(got[:, 3] - want[:, 3]).max()) if ok else float("inf")
+        results[label] = {"launches": {k: v / frames for k, v in launches.items()}, "max_abs_err": err}
+        phase(12, f"{label}: packed {list(got.shape)} vs JAX golden: ints equal {ok}, max|sim diff| {sim_err:.3g}; "
+                  f"launches a frame (2.1, 2.2, 2.3) {tuple(v / frames for v in launches.values())}, "
+                  f"max|kernel-plain| {tuple(err.values())} over every launch")
+        check(ok and sim_err <= SIM_ATOL, f"{label}: packed candidates differ from the JAX golden")
+        check(launches["coarse_scores"] > 0 and launches["fine_scores"] > 0, f"{label}: a kernel was not launched")
+        check(max(err.values()) == 0, f"{label}: a kernel launch != its plain version")
+    check(results["quant 96,300"]["launches"]["coarse_max"] == 1, "the 96,300 quant path did not take the masked max")
+    sparse_t = up(sparse)
+    same = {opt: np.array_equal(detect_frame(st, sparse_t).cpu().numpy(), detect_frame(state, sparse_t).cpu().numpy())
+            for opt, st in opt_state.items()}
+    phase(12, f"sparse frame (228 coarse entries at threshold; the guard passes): the opt-ins' packed arrays equal "
+              f"the exact cut's: {same}")
+    check(all(same.values()), "an opt-in cut differs from the exact cut on the sparse frame")
+
+    # the routes through PoseDetection: the default route's pose
+    det_hq = PoseDetection(det.bank, det.cam, det.settings, det.props, dev, host_quant=True)
+    det_dt = PoseDetection(det.bank, det.cam, det.settings, det.props, dev)
+    det_dt.delta_transport = True
+    check(det_hq.host_quant and not det_dt.host_quant, "the routes' flags")
+    for label, d in (("host-quantize route", det_hq), ("delta route", det_dt)):
+        poses, launches, err = kept_launches(lambda d=d: d.detect(color, depth, 1))
+        check_pose(poses, ref, label, 12)
+        check(max(err.values()) == 0 and launches["fine_scores"] == 1, f"{label}: launches {launches}, err {err}")
+        results[f"{label} detect"] = {"launches": launches, "max_abs_err": err}
+
+    # times: the device programs (CUDA events around the whole call, host
+    # enqueue included; medians of 20, in turns), device operations a frame
+    # (torch.profiler), and each route's whole detect (host clock)
+    prog = {"detect_frame": lambda: detect_frame(state, color_t),
+            "detect_frame_quant": lambda: detect_frame_quant(state, q0_t, q1_t),
+            "detect_frame_delta": lambda: detect_frame_delta(state, delta_t)}
+    order = ["detect_frame", "detect_frame_quant", "detect_frame_delta", "detect_frame_delta", "detect_frame_quant",
+             "detect_frame"]
+    prog_ms = {k: [] for k in prog}
+    for k in order:
+        prog_ms[k].append(cuda_ms(prog[k]))
+    profiles = {k: profile_frames(fn) for k, fn in prog.items()}
+    phase(12, "device programs on the fixture, CUDA events (median of 20, run in the order ABCCBA): "
+              + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in prog_ms[k])} ms" for k in prog) + f" ({where})")
+    for k, (busy, count, top) in profiles.items():
+        print(f"  {k} profile (torch.profiler, 5 frames): device busy {busy:.3f} ms, {count:.0f} device operations "
+              f"a frame; top: " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+    ops = {k: v[1] for k, v in profiles.items()}
+    phase(12, f"the quantizer's share of the color program's launches: {ops['detect_frame'] - ops['detect_frame_quant']:.0f} "
+              f"of {ops['detect_frame']:.0f} device operations a frame ({where})")
+    routes = {"default": det, "host_quant": det_hq, "delta_transport": det_dt}
+    route_ms = {k: host_ms(lambda d=d: d.detect(color, depth, 1)) for k, d in routes.items()}
+    phase(12, "whole detect by route (host clock, median of 20 / min): "
+              + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ms" for k, v in route_ms.items()) + f" ({where})")
+
+    # cli detect over a PNG sequence, with the prefetching loader and with
+    # FileSequenceSource, in turns after a warm-up run
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ingest-", dir=os.path.join(REPO, "build"))
+    try:
+        for i in range(CLI_SEQUENCE_FRAMES):
+            shutil.copy(os.path.join(EXAMPLE, "benchmark", "img0.png"), os.path.join(tmp, f"img{i}.png"))
+            shutil.copy(os.path.join(EXAMPLE, "benchmark", "depth0.png"), os.path.join(tmp, f"depth{i}.png"))
+        sources = {"loader": None,
+                   "FileSequenceSource": lambda images, depths, w, h: iter(FileSequenceSource(images, depths))}
+        cli_sequence_ms(dev, tmp, None)
+        cli = {k: [] for k in sources}
+        for k in ("loader", "FileSequenceSource", "FileSequenceSource", "loader"):
+            cli[k].append(cli_sequence_ms(dev, tmp, sources[k]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(12, f"cli detect --profile over {CLI_SEQUENCE_FRAMES} PNG frames, two runs each in turns (ms a frame): "
+              + "; ".join(f"{k}: " + ", ".join(f"decode {r['decode']:.2f} + detect {r['detect']:.2f} = "
+                                               f"{r['decode'] + r['detect']:.2f} (mean line {r['mean']:.1f})"
+                                               for r in runs) for k, runs in cli.items()) + f" ({where})")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1906,7 +2161,11 @@ def main() -> int:
 
     sharded = sharded_phase(card, ref, big_ref, dual_ref, pose_gate)
 
-    # -- phase 12: the probes
+    # -- phase 12: the host-side ingest routes and the cut opt-ins
+    ingest = ingest_phase(dev, card, det, det_big, det_dual, {"fixture": ref, "96300": big_ref, "dual": dual_ref},
+                          color, depth, check_pose)
+
+    # -- phase 13: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -1939,18 +2198,28 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(12, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(13, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 13: results
+    # -- phase 14: results
     def sharded_launches(i):
         """Phase 11's launches a frame a rank of kernel i (2.1, 2.2, 2.3)
         and its max|kernel - plain| over every rank's launches, by world and
         path."""
         return {world: {path: {"launches": n[i], "max_abs_err": e[i]} for path, (n, e) in paths.items()}
                 for world, paths in sharded.items()}
+
+    def ingest_launches(name):
+        """Phase 12's launches a frame of kernel `name` and its max|kernel -
+        plain|, by path: the host-quantize and delta routes and the cut
+        opt-ins."""
+        groups = {"quant": ("quant", "quant 96,300", "host-quantize route detect"),
+                  "delta": ("delta", "dual delta", "batch delta", "delta route detect"),
+                  "cut_opt_ins": ("approx_topk", "guarded_cut")}
+        return {group: {path: {"launches": ingest[path]["launches"][name], "max_abs_err": ingest[path]["max_abs_err"][name]}
+                        for path in paths} for group, paths in groups.items()}
 
     def entry(name, source, replaces, n_launches, err, k_t, p_t, bnd, lib_t):
         return {"name": name, "route": "cuda", "source": f"linemod_tpu_torch/csrc/{source}",
@@ -1973,17 +2242,18 @@ def main() -> int:
          "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
          "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]},
          "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()},
-         "sharded": sharded_launches(0)},
+         "sharded": sharded_launches(0), **ingest_launches("coarse_scores")},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
          "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
          "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]},
          "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()},
-         "sharded": sharded_launches(1)},
+         "sharded": sharded_launches(1), **ingest_launches("fine_scores")},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
          "dual": dual("coarse_max", dual_launches["coarse_max"]),
-         "icp": {"launches": icp_launches["coarse_max"]}, "sharded": sharded_launches(2)},
+         "icp": {"launches": icp_launches["coarse_max"]}, "sharded": sharded_launches(2),
+         **ingest_launches("coarse_max")},
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),
@@ -1993,7 +2263,7 @@ def main() -> int:
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
               *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
-    phase(13, "seconds from the start to each phase's first line: "
+    phase(14, "seconds from the start to each phase's first line: "
               + ", ".join(f"{n} {t:.1f}" for n, t in sorted(PHASE_AT.items())))
     print(card)
     print(json.dumps({"kernels": kernels}))

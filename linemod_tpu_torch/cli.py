@@ -20,8 +20,10 @@ Usage:
     python -m linemod_tpu_torch.cli convert --to-reference DIR --bank banks/m.npz
 
 Frames are PNG (depth also `.dpt`): the port has no JPEG decoder, and a
-JPEG frame raises a ValueError (pipeline/sensors.py). Not ported: `aruco`
-(OpenCV's aruco module) and `detect --show` (a GUI-capable OpenCV).
+JPEG frame raises a ValueError (pipeline/sensors.py). `detect` reads a
+`%d` PNG sequence through the prefetching loader (`_frame_source`). Not
+ported: `aruco` (OpenCV's aruco module) and `detect --show` (a GUI-capable
+OpenCV).
 """
 
 from __future__ import annotations
@@ -61,6 +63,22 @@ def _load_bank(args):
     return cam, settings, model_path, TemplateBank.load(bank_path)
 
 
+def _frame_source(images: str, depths: str, width: int, height: int):
+    """(color, depth) frames of a numbered sequence. A `%d` pair of PNG
+    templates goes through utils/native.NativeFrameLoader, which decodes
+    frame i+1 on a background thread while frame i is detected; anything
+    else (a `.dpt` depth, a single file) through FileSequenceSource, a frame
+    at a time. A frame that fails to decode raises: there is no fallback."""
+    from .pipeline.sensors import FileSequenceSource
+    from .utils.native import NativeFrameLoader
+
+    if "%" in images and images.endswith(".png") and depths.endswith(".png"):
+        with NativeFrameLoader(images, depths, width, height) as loader:
+            yield from loader
+        return
+    yield from FileSequenceSource(images, depths)
+
+
 def cmd_generate(args):
     from .config import load_settings
     from .pipeline.template_generator import TemplateGenerator
@@ -77,7 +95,6 @@ def cmd_detect(args):
     from .ops.rasterizer import mesh_to_arrays
     from .pipeline.benchmark import Benchmark, read_ground_truth_pose
     from .pipeline.pose_detection import DetectionDebug, PoseDetection
-    from .pipeline.sensors import FileSequenceSource
     from .utils.draw import draw_coordinate_system, draw_features
     from .utils.mesh_io import load_mesh
     from .utils.png import write_png
@@ -104,7 +121,7 @@ def cmd_detect(args):
     def stage(name):
         return timer.stage(name) if timer else nullcontext()
 
-    frames = iter(FileSequenceSource(args.images, args.depths))
+    frames = _frame_source(args.images, args.depths, cam.width, cam.height)
     i = -1
     times = []
     while True:

@@ -27,10 +27,20 @@ normal planes, then the zero plane, and a template's features of both
 modalities ride in one table, the normal ones on planes offset past the
 color planes.
 
+`match_templates_quant` starts from the two quantized orientation maps
+that the host made (utils/native.quantize_frame) in place of the color
+frame.
+
+The reference's two cut opt-ins compute the exact cut here:
+`MatchConfig.approx_topk` asks for `lax.approx_max_k`, which XLA's CPU and
+GPU backends lower to the exact `lax.top_k` (values, indices and tie order
+equal), so it is the dense cut; `MatchConfig.guarded_cut` counts the
+above-threshold entries as the reference's guard does and selects, on the
+device, between the re-ranked fast pass and the exact cut, both of which
+are the canonical exact cut here.
+
 The outputs equal the JAX reference's: integers exactly, similarities bit
-for bit (the percent scale is computed in the same float32 order). Not
-ported: the approximate and guarded cuts (opt-ins the reference leaves
-off).
+for bit (the percent scale is computed in the same float32 order).
 """
 
 from __future__ import annotations
@@ -73,6 +83,10 @@ class MatchConfig:
     # prefiltered exact cut: rescan only the best `prefilter_sel` templates
     # by their masked max; 0 = off. Takes precedence over scan_chunk.
     prefilter_sel: int = 0
+    # the reference's opt-ins for its TPU cut (off there by default); both
+    # give the exact cut on this backend (candidate_cut)
+    approx_topk: bool = False
+    guarded_cut: bool = False  # takes precedence over approx_topk
 
 
 TENSOR_FIELDS = (
@@ -280,6 +294,19 @@ def match_templates(state: MatchState, color: torch.Tensor, depth=None) -> dict:
     return _match_with_planes(state, fine_planes, coarse_planes)
 
 
+def match_templates_quant(state: MatchState, quant0: torch.Tensor, quant1: torch.Tensor) -> dict:
+    """match_templates from the quantized orientation maps of both pyramid
+    levels (the host-quantize route, utils/native.quantize_frame):
+    quant0 [H, W] and quant1 [H/2, W/2] uint8 one-hot, on the state's
+    device. Color-only states only."""
+    cfg = state.cfg
+    if cfg.dual_modality:
+        raise ValueError("match_templates_quant takes a color-only state; a dual state needs the depth")
+    fine_planes = _planes_from_quant([quant0], cfg.t_fine, state.max_cells_fine)
+    coarse_planes = _planes_from_quant([quant1], cfg.t_coarse, state.max_cells_coarse)
+    return _match_with_planes(state, fine_planes, coarse_planes)
+
+
 def coarse_similarity(state: MatchState, coarse_planes: torch.Tensor) -> torch.Tensor:
     """[N, G] float32 percent similarity of every template at every coarse
     cell, -1 where the template does not fit the image at that cell."""
@@ -295,18 +322,37 @@ def coarse_similarity(state: MatchState, coarse_planes: torch.Tensor) -> torch.T
     return torch.where(fits, sim_c, -1.0)
 
 
-def candidate_cut(sim_c: torch.Tensor, cw: int, top_k: int):
+def candidate_cut(sim_c: torch.Tensor, cw: int, top_k: int, cfg: MatchConfig | None = None):
     """Exact top-K (template, cell) candidates of the dense [N, G] similarity
     in canonical order: similarity descending, then flat index t*G + g
     ascending (a stable descending sort keeps tied entries in index order;
     torch.topk leaves tie order unspecified, and the fixture frame has a
     625-fold tie at the K-th value, above threshold).
+
+    `cfg.approx_topk` is this cut: the reference's `lax.approx_max_k` is the
+    exact top_k on XLA's CPU and GPU backends. `cfg.guarded_cut` runs the
+    reference's guard over it (`_guarded`).
     Returns (top_sim, cand_t, cand_gy, cand_gx), each [top_k]."""
     n_cells = sim_c.shape[1]
-    top_sim, top_idx = torch.sort(sim_c.reshape(-1), descending=True, stable=True)
+    flat = sim_c.reshape(-1)
+    top_sim, top_idx = torch.sort(flat, descending=True, stable=True)
     top_sim, top_idx = top_sim[:top_k], top_idx[:top_k]
+    if cfg is not None and cfg.guarded_cut:
+        top_sim, top_idx = _guarded(flat, (top_sim, top_idx), (top_sim, top_idx), cfg.threshold, top_k)
     cand_g = top_idx % n_cells
     return top_sim, top_idx // n_cells, cand_g // cw, cand_g % cw
+
+
+def _guarded(flat: torch.Tensor, approx: tuple, exact: tuple, threshold: float, top_k: int):
+    """The reference's guarded cut (`MatchConfig.guarded_cut`): `approx`,
+    the approximate pass's (sim, index), holds entries at or above the
+    threshold that are a sub-multiset of the dense ones, so equal counts
+    prove that it caught every one of them; then the pass re-ranked by
+    (sim desc, index asc) is the result, else `exact`. The choice is made on
+    the device, without a sync. (Here the pass is the exact cut itself.)"""
+    caught = (approx[0] >= threshold).sum() == (flat >= threshold).sum()
+    f_sim, f_idx = rank_by_sim_then_index(*approx, top_k)
+    return torch.where(caught, f_sim, exact[0]), torch.where(caught, f_idx, exact[1])
 
 
 def rank_by_sim_then_index(sim: torch.Tensor, idx: torch.Tensor, top_k: int):
@@ -348,7 +394,7 @@ def candidate_cut_streaming(state: MatchState, coarse_planes: torch.Tensor, top_
     run_sim = run_pos = None
     for t0 in range(0, n, chunk):
         sim_c = coarse_similarity(_coarse_rows(state, slice(t0, t0 + chunk)), coarse_planes)
-        c_sim, ct, cgy, cgx = candidate_cut(sim_c, cw, top_k)
+        c_sim, ct, cgy, cgx = candidate_cut(sim_c, cw, top_k, state.cfg)
         c_pos = (ct + t0) * n_cells + cgy * cw + cgx
         if run_sim is not None:
             c_sim, c_pos = rank_by_sim_then_index(
@@ -399,7 +445,7 @@ def candidate_cut_prefilter(state: MatchState, coarse_planes: torch.Tensor, top_
     # order then coincides with the global canonical order
     sel_sorted = torch.sort(sel_idx).values
     sim_c = coarse_similarity(_coarse_rows(state, sel_sorted), coarse_planes)
-    top_sim, ct, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], top_k)
+    top_sim, ct, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], top_k, cfg)
     v_star = top_sim[top_k - 1]
     exact = ~saturated | (v_star > theta) | (v_star < cfg.threshold)
     return top_sim, sel_sorted[ct], cand_gy, cand_gx, exact
@@ -467,7 +513,7 @@ def _match_with_planes(state: MatchState, fine_planes, coarse_planes) -> dict:
         )
     else:
         sim_c = coarse_similarity(state, coarse_planes)
-        top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k)
+        top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k, cfg)
     sim, x, y = fine_refine(state, fine_planes, cand_t, cand_gy, cand_gx)
     out = finalize_matches(cfg, cand_t, sim, x, y, top_sim)
     if cut_exact is not None:

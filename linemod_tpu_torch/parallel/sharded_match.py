@@ -209,7 +209,7 @@ class ShardedMatcher:
             if cfg.scan_chunk and self.n_shard > cfg.scan_chunk:
                 top_sim, ct, gy, gx = candidate_cut_streaming(st, coarse, k_local)
             else:
-                top_sim, ct, gy, gx = candidate_cut(coarse_similarity(st, coarse), cw, k_local)
+                top_sim, ct, gy, gx = candidate_cut(coarse_similarity(st, coarse), cw, k_local, cfg)
             flat = (ct + ti * self.n_shard) * n_cells + gy * cw + gx
             return (top_sim, *merge(top_sim, flat))
 
@@ -226,7 +226,7 @@ class ShardedMatcher:
             s_slice = n_sel // tp
             mine = torch.sort(sel_idx).values[ti * s_slice : (ti + 1) * s_slice]
             sim_sel = coarse_similarity(_coarse_rows(self.full, mine), coarse)
-            l_sim, lt, lgy, lgx = candidate_cut(sim_sel, cw, k)
+            l_sim, lt, lgy, lgx = candidate_cut(sim_sel, cw, k, cfg)
             m_sim, m_flat = merge(l_sim, mine[lt] * n_cells + lgy * cw + lgx)
             v_star = m_sim[k - 1]
             cut_exact = ~saturated | (v_star > theta) | (v_star < cfg.threshold)

@@ -7,7 +7,9 @@ program per frame computes the response planes once and scans all classes;
 the candidates are then split by class (by the banks' template offsets) and
 grouped, checked, and with ICP refined and verified, class by class.
 `make_match_config` scales top_k with the class count, so one class cannot
-crowd the others out of the cut.
+crowd the others out of the cut. The attribute `delta_transport` uploads
+the color frame delta-encoded (PoseDetection's route); as in the
+reference, the multi-class detector has no host-quantize route.
 """
 
 from __future__ import annotations
@@ -54,10 +56,14 @@ class MultiModelPoseDetection:
     class, used when `settings.use_icp`. `exact_state` and `retries` are
     PoseDetection's (the prefiltered cut's retry state, built here)."""
 
-    # recentring, the upload and the match program are PoseDetection's
+    # recentring, the upload routes and the match program are PoseDetection's
     recenter = PoseDetection.recenter
+    _to_device = PoseDetection._to_device
+    _upload_depth = PoseDetection._upload_depth
     upload = PoseDetection.upload
+    launch = PoseDetection.launch
     detect_submit = PoseDetection.detect_submit
+    host_quant = False
 
     def __init__(
         self,
@@ -88,6 +94,7 @@ class MultiModelPoseDetection:
         self.exact_state = _exact_state(self.state)
         self.retries = 0
         self._hull_masks = {c: {} for c in self.class_ids}
+        self.delta_transport = False
 
     def detect_all(
         self, color: np.ndarray, depth: np.ndarray, num_objects: int = 1,

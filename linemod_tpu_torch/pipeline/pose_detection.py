@@ -22,11 +22,17 @@ group's candidate poses are refined against the scene cloud and verified by
 rendering (src/PoseDetection.cpp:72-84); the stream then collects in two
 stages, so a frame's ICP is collected after the next frame's matches.
 
-Left out: the reference's delta-encoded and host-quantized uploads and its
-collector threads, which serve a remote TPU link whose fetch takes ~50 ms.
-On the card `detect_submit` already returns at once, and collector threads
-would share the unlocked hull-mask cache and retry count, so the stream
-takes no `workers`.
+Two upload routes are opt-ins, as in the reference, where only a TPU
+backend turns them on: `host_quant` quantizes the frame on the host
+(utils/native.quantize_frame) and uploads the two u8 orientation maps
+(384 KB at 640x480) in place of the color frame (921 KB); `delta_transport`
+uploads the color frame delta-encoded (ops/detect_core.delta_encode_host).
+Every route gives the same packed array.
+
+Left out: the reference's collector threads, which serve a remote TPU link
+whose fetch takes ~50 ms. On the card `detect_submit` already returns at
+once, and collector threads would share the unlocked hull-mask cache and
+retry count, so the stream takes no `workers`.
 """
 
 from __future__ import annotations
@@ -39,7 +45,14 @@ import torch
 
 from ..config import CameraParameters, ModelProperties, TemplateSettings
 from ..models.template_bank import _pad_bank, _pad_chunk
-from ..ops.detect_core import detect_frame, detect_frames_batch
+from ..ops.detect_core import (
+    delta_encode_host,
+    detect_frame,
+    detect_frame_delta,
+    detect_frame_quant,
+    detect_frames_batch,
+    detect_frames_batch_delta,
+)
 from ..ops.matching import MatchConfig, build_match_state
 from ..ops.postprocess import (
     color_check_host,
@@ -49,6 +62,7 @@ from ..ops.postprocess import (
     hull_mask,
     reconstruct_pose,
 )
+from ..utils.native import quantize_frame
 
 # banks above this many templates take the prefiltered cut
 BIG_BANK_TEMPLATES = 8192
@@ -123,7 +137,15 @@ class PoseDetection:
     streaming cut, built here so that no collector ever builds it, and
     `retries` counts the frames re-run on it. `icp` (an IcpRefiner on the
     same device) refines and verifies the poses when `settings.use_icp`;
-    `mesh` is kept for callers, as the reference keeps it."""
+    `mesh` is kept for callers, as the reference keeps it.
+
+    The upload routes (`detect_submit`): `host_quant` quantizes the frame on
+    the host and uploads the two orientation maps; a dual bank never does,
+    since its normals need the depth on the device. The attribute
+    `delta_transport` (False; a caller sets it) uploads the color frame
+    delta-encoded, with either bank; `host_quant` takes precedence over it.
+    The reference turns both on by itself only on a TPU backend, so here
+    `host_quant=None` means False."""
 
     def __init__(
         self,
@@ -135,6 +157,7 @@ class PoseDetection:
         cfg: MatchConfig | None = None,
         mesh=None,
         icp=None,
+        host_quant: bool | None = None,
     ):
         self.bank = bank
         self.cam = cam
@@ -149,6 +172,8 @@ class PoseDetection:
         self.exact_state = _exact_state(self.state)
         self.retries = 0
         self._hull_masks: dict[int, np.ndarray] = {}  # per template, built lazily
+        self.host_quant = bool(host_quant) and not bank.dual_modality
+        self.delta_transport = False
 
     def recenter(self, img: np.ndarray) -> np.ndarray:
         """Shift the principal point to the image centre: integer shift, zero fill."""
@@ -165,15 +190,32 @@ class PoseDetection:
         out[dy0 : dy0 + hh, dx0 : dx0 + ww] = img[sy0 : sy0 + hh, sx0 : sx0 + ww]
         return out
 
+    def _to_device(self, a: np.ndarray, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
+
     def upload(self, color_c: np.ndarray, depth_c) -> tuple:
         """(color, depth) of one recentred frame on the device, the
         program's inputs: color as uint8; with a dual bank the depth as
         float32, converted on the host (torch's uint16 support is thin),
         else None (the depth stays on the host)."""
-        frame = torch.from_numpy(np.ascontiguousarray(color_c, dtype=np.uint8)).to(self.device)
-        if not self.state.cfg.dual_modality:
-            return frame, None
-        return frame, torch.from_numpy(np.ascontiguousarray(depth_c, dtype=np.float32)).to(self.device)
+        return self._to_device(color_c, np.uint8), self._upload_depth(depth_c)
+
+    def _upload_depth(self, depth_c):
+        return self._to_device(depth_c, np.float32) if self.state.cfg.dual_modality else None
+
+    def launch(self, color_c: np.ndarray, depth_c) -> torch.Tensor:
+        """Upload one recentred frame by this detector's route and launch its
+        match program: the host-quantized maps (`host_quant`), the
+        delta-encoded color (`delta_transport`) or the color frame; with a
+        dual bank the depth goes too. Returns the packed tensor, not yet
+        computed."""
+        if self.host_quant:
+            q0, q1 = quantize_frame(color_c)
+            return detect_frame_quant(self.state, self._to_device(q0, np.uint8), self._to_device(q1, np.uint8))
+        if self.delta_transport:
+            delta = self._to_device(delta_encode_host(np.asarray(color_c, np.uint8)), np.uint8)
+            return detect_frame_delta(self.state, delta, self._upload_depth(depth_c))
+        return detect_frame(self.state, *self.upload(color_c, depth_c))
 
     def detect(
         self, color: np.ndarray, depth: np.ndarray, num_objects: int = 1,
@@ -187,22 +229,29 @@ class PoseDetection:
 
     def detect_submit(self, color: np.ndarray, depth: np.ndarray):
         """Upload the recentred frame and launch the match program without
-        waiting for it; returns the handle for detect_collect. In color-only
-        mode the depth image stays on the host, where the checks read it; a
-        dual bank uploads it too."""
+        waiting for it (`launch`); returns the handle for detect_collect. In
+        color-only mode the depth image stays on the host, where the checks
+        read it; a dual bank uploads it too."""
         color_c = self.recenter(np.ascontiguousarray(color))
         depth_c = self.recenter(np.ascontiguousarray(depth))
-        return detect_frame(self.state, *self.upload(color_c, depth_c)), color_c, depth_c
+        return self.launch(color_c, depth_c), color_c, depth_c
 
     def detect_submit_batch(self, frames) -> tuple:
         """Launch the match program for several (color, depth) frames at
-        once; returns the handle for detect_collect_batch."""
+        once, the color delta-encoded with `delta_transport` (as the
+        reference, the batch has no host-quantize route); returns the handle
+        for detect_collect_batch."""
         recentred = [
             (self.recenter(np.ascontiguousarray(c)), self.recenter(np.ascontiguousarray(d))) for c, d in frames
         ]
-        uploads = [self.upload(c, d) for c, d in recentred]
-        depths = None if uploads[0][1] is None else torch.stack([d for _, d in uploads])
-        return detect_frames_batch(self.state, torch.stack([c for c, _ in uploads]), depths), recentred
+        depths = None
+        if self.state.cfg.dual_modality:
+            depths = self._to_device(np.stack([d for _, d in recentred]), np.float32)
+        if self.delta_transport:
+            deltas = np.stack([delta_encode_host(np.asarray(c, np.uint8)) for c, _ in recentred])
+            return detect_frames_batch_delta(self.state, self._to_device(deltas, np.uint8), depths), recentred
+        colors = self._to_device(np.stack([c for c, _ in recentred]), np.uint8)
+        return detect_frames_batch(self.state, colors, depths), recentred
 
     def detect_collect_batch(self, handle, num_objects: int = 1) -> list:
         """Collect a submitted batch (one copy to the host): one pose list a
@@ -217,11 +266,12 @@ class PoseDetection:
         of the one collected. Results come out in submission order and equal
         `detect`'s. With ICP on, a frame's ICP is collected after the next
         frame's matches are (two stages). Collection runs in the caller's
-        thread (see the module docstring)."""
+        thread (see the module docstring). With `host_quant` the frames go
+        one at a time, as the reference sends them."""
         two_stage = self.icp is not None and self.settings.use_icp
         if pipeline_depth is None:
             pipeline_depth = 12 if two_stage else 4
-        if batch > 1:
+        if batch > 1 and not self.host_quant:
             for results in _pipelined(
                 _batches(frames, batch), self.detect_submit_batch, lambda handle: handle,
                 lambda handle: self.detect_collect_batch(handle, num_objects), pipeline_depth, False,

@@ -20,14 +20,13 @@ by the first maximum, so the channel order is part of the result.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import struct
-import subprocess
 import threading
 import zlib
 
 import numpy as np
+
+from . import hostlib
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples a pixel; the bit depths each color type allows
@@ -36,36 +35,21 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 # gray of 1, 2 or 4 bits -> 0..255, as libpng's expand_gray_1_2_4_to_8
 _GRAY_SCALE = {1: 255, 2: 85, 4: 17}
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_unfilter.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "host")
-_CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _library = []
 
 
 def _load_unfilter():
-    """The C++ unfilter, built by g++ into build/host/ once per source
-    version (the file name carries a hash of the source and flags). A
-    failed build raises."""
+    """The C++ unfilter (csrc/png_unfilter.cpp), built by g++ into
+    build/host/ at first use (utils/hostlib). A failed build raises."""
     with _lock:
-        if _library:
-            return _library[0]
-        with open(_SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
-        path = os.path.join(_BUILD_DIR, f"png_unfilter-{digest}.so")
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            out = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SOURCE], capture_output=True, text=True)
-            if out.returncode != 0:
-                raise RuntimeError(f"g++ failed on {_SOURCE}:\n{out.stdout}{out.stderr}")
-            os.replace(tmp, path)
-        fn = ctypes.CDLL(path).png_unfilter
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _library.append(fn)
-        return fn
+        if not _library:
+            fn = hostlib.load("png_unfilter", _CXX_FLAGS).png_unfilter
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _library.append(fn)
+        return _library[0]
 
 
 def _check_raw(raw: bytes, h: int, row_bytes: int) -> None:

@@ -55,6 +55,8 @@ def test_port_imports_without_jax_cv2_yaml():
     assert tooling <= set(result["modules"]), tooling - set(result["modules"])
     sharding = {"linemod_tpu_torch.parallel." + m for m in ("mesh", "distributed", "sharded_match")}
     assert sharding <= set(result["modules"]), sharding - set(result["modules"])
+    ingest = {"linemod_tpu_torch." + m for m in ("utils.native", "utils.hostlib", "ops.detect_core")}
+    assert ingest <= set(result["modules"]), ingest - set(result["modules"])
     assert result["loaded"] == []
 
 
