@@ -158,14 +158,27 @@ Drives the port's paths on the card and checks them, in phases:
    20, in turns) with their device operations a frame (torch.profiler),
    whole `detect` by route, and `cli detect` over a 20-frame PNG sequence
    with the prefetching loader and with FileSequenceSource, in turns;
-13. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+13. JPEG frames and ArUco ground-truth capture (`jpeg_aruco_phase`):
+   every golden JPEG (tests/goldens/jpeg/) decodes to cv2's digest and the
+   progressive one raises; `cli evaluate --gt linemod` and `cli detect`
+   over a JPEG LINEMOD-layout sequence (its .dpt depths and tra/rot written
+   here) print JAX's lines (tests/goldens/jpeg_ref.npz), 2.1 and 2.2
+   launching once a frame, each launch held against its plain twin; the
+   board images equal cv2's, and on six 1920x1080 frames built here the
+   markers' ids and corners (first pass and refined) equal cv2's, the
+   device threshold maps the CPU's, and the board pose JAX's within the
+   pose solvers' gap (tests/goldens/aruco_ref.npz); `capture_ground_truth`
+   writes JAX's files. Times: host decode of the 640x480 frame as JPEG
+   4:2:0 / 4:4:4 and as PNG, `cli evaluate` ms a frame over JPEG and PNG,
+   `detect_board_pose` at 1920x1080 by stage, the capture's ms a frame;
+14. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-14. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+15. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
    two-class shapes' numbers under `multi`, the launches of detection
    with the card's generated color bank under `generated`, phase 10's
-   launches a frame of each path under `cli_launches_a_frame`, phase
-   11's launches a frame a rank and max|kernel - plain| over the ranks
+   launches a frame of each path under `cli_launches_a_frame`, phase 13's
+   JPEG paths' under `jpeg_launches_a_frame`, phase 11's launches a frame a rank and max|kernel - plain| over the ranks
    under `sharded`, by world and path, and phase 12's launches a frame and
    max|kernel - plain| under `quant`, `delta` and `cut_opt_ins`, by path),
    after a line of the seconds from the start to each phase, then the
@@ -202,6 +215,14 @@ GEN_COLOR_REF = os.path.join(REPO, "tests", "goldens", "gen_color_r500_ref.npz")
 SYNTH_REF = os.path.join(REPO, "tests", "goldens", "synth_eval_ref.npz")
 PAIR_REF = os.path.join(REPO, "tests", "goldens", "refpair_ref.npz")
 REG_REF = os.path.join(REPO, "tests", "goldens", "registration_ref.npz")
+JPEG_DIR = os.path.join(REPO, "tests", "goldens", "jpeg")
+JPEG_REF = os.path.join(REPO, "tests", "goldens", "jpeg_ref.npz")
+ARUCO_REF = os.path.join(REPO, "tests", "goldens", "aruco_ref.npz")
+# the port's board pose against JAX's (one cv2.solvePnP call, which stops
+# with steps left) on the clean frames, and against solvePnP rerun from its
+# own answer until it stops moving (tests/test_torch_aruco.py)
+ARUCO_POSE_MM, ARUCO_POSE_ROT = 5e-6, 2e-7
+ARUCO_CONVERGED_MM, ARUCO_CONVERGED_ROT = 1e-6, 1e-9
 SYNTH_FRAMES = 30  # the accuracy protocol's frames a mode
 # synthetic frames after the fixture frame in the CLI's sequence (mode, index)
 CLI_SYNTH_FRAMES = (("shiny", 0), ("holes", 0), ("clutter", 0))
@@ -1515,6 +1536,215 @@ def ingest_phase(dev, card: str, det, det_big, det_dual, refs: dict, color, dept
     return results
 
 
+def aruco_frames() -> dict:
+    """The ArUco test frames of tests/test_torch_aruco.test_frames (numpy
+    only; their sha256 is in tests/goldens/aruco_ref.npz): the JAX test's
+    frame, its noise-corrupted copy and four seeded views, 1920x1080."""
+    from linemod_tpu_torch.config import CameraParameters
+    from linemod_tpu_torch.pipeline.aruco_capture import _board, board_view
+
+    board = _board().generate_image((720, 1000), 20)
+    frame = np.full((1080, 1920, 3), 128, np.uint8)
+    frame[40:1040, 600:1320] = board[:, :, None]
+    noisy = frame.copy()
+    noisy[60:180, 620:740] = np.random.default_rng(0).integers(0, 255, (120, 120, 3), dtype=np.uint8)
+    out = {"jax": frame, "noisy": noisy}
+    cam = CameraParameters(fx=1000.0, fy=1000.0, cx=960.0, cy=540.0, width=1920, height=1080)
+    for seed in (0, 2, 3, 4):
+        r = np.random.default_rng(seed)
+        rvec = np.array([r.uniform(-0.5, 0.5), r.uniform(-0.5, 0.5), r.uniform(-0.4, 0.4)])
+        tvec = np.array([-340 + r.uniform(-150, 150), -480 + r.uniform(-60, 60), r.uniform(1150, 1600)])
+        out[f"view{seed}"] = board_view(board, cam, rvec, tvec)
+    return out
+
+
+def jpeg_aruco_phase(dev, card: str) -> dict:
+    """Phase 13: JPEG color frames and the ArUco ground-truth capture on the
+    card, held to the goldens of tests/test_torch_jpeg.py and
+    tests/test_torch_aruco.py (cv2 and JAX on the CPU). Returns the JPEG
+    paths' 2.1 and 2.2 launches a frame."""
+    import hashlib
+    import re
+    import shutil
+    import tempfile
+
+    from linemod_tpu_torch.config import CameraParameters
+    from linemod_tpu_torch.ops import aruco
+    from linemod_tpu_torch.pipeline import aruco_capture as ac
+    from linemod_tpu_torch.pipeline.benchmark import read_ground_truth_pose
+    from linemod_tpu_torch.utils.geometry import quat_to_mat, rotation_about_axis
+    from linemod_tpu_torch.utils.io import save_depth_linemod_dataset
+    from linemod_tpu_torch.utils.jpeg import read_jpeg
+    from linemod_tpu_torch.utils.png import read_png, write_png
+    from linemod_tpu_torch.utils.profiling import StageTimer
+    from linemod_tpu_torch.utils.yamlcv import read_yamlcv
+
+    jref, aref = np.load(JPEG_REF), np.load(ARUCO_REF)
+    # (a) every golden JPEG decodes to cv2's digest; the progressive one raises
+    decoded = 0
+    for name, color_sha, gray_sha in zip(jref["names"], jref["color_sha256"], jref["gray_sha256"]):
+        path = os.path.join(JPEG_DIR, str(name))
+        if str(name).endswith("progressive.jpg"):
+            try:
+                read_jpeg(path, "color")
+                check(False, f"{name}: a progressive JPEG decoded")
+            except ValueError as e:
+                check(str(name) in str(e) and "progressive (SOF2)" in str(e), f"{name}: {e}")
+            continue
+        check(hashlib.sha256(read_jpeg(path, "color").tobytes()).hexdigest() == color_sha, f"{name}: color != cv2")
+        check(hashlib.sha256(read_jpeg(path, "anydepth").tobytes()).hexdigest() == gray_sha, f"{name}: gray != cv2")
+        decoded += 1
+    phase(13, f"JPEG decode: {decoded} golden files equal cv2's decode (color and gray) bit for bit; "
+              "the progressive file raises naming the file and SOF2")
+
+    # (b) evaluate --gt linemod and detect over the JPEG LINEMOD-layout sequence
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="jpeg-aruco-", dir=os.path.join(REPO, "build"))
+    launches = {}
+    try:
+        seq = os.path.join(tmp, "benchmarkLINEMOD")
+        png_seq = os.path.join(tmp, "png")
+        os.makedirs(seq)
+        os.makedirs(png_seq)
+        depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
+        gt = read_ground_truth_pose(os.path.join(EXAMPLE, "benchmark", "pose0.yml"))
+        rot_raw = rotation_about_axis([1.0, 0.0, 0.0], -np.pi / 2.0).T @ quat_to_mat(np.asarray(gt.quaternion))
+        for i, name in enumerate(jref["sequence"]):
+            shutil.copy(os.path.join(JPEG_DIR, str(name)), os.path.join(seq, f"color{i}.jpg"))
+            write_png(os.path.join(png_seq, f"color{i}.png"), read_jpeg(os.path.join(seq, f"color{i}.jpg"), "color"))
+            for d in (seq, png_seq):
+                save_depth_linemod_dataset(os.path.join(d, f"depth{i}.dpt"), depth)
+                with open(os.path.join(d, f"tra{i}.tra"), "w") as f:
+                    f.write("1 3\n" + " ".join(f"{v / 10.0:.6f}" for v in gt.translation) + "\n")
+                with open(os.path.join(d, f"rot{i}.rot"), "w") as f:
+                    f.write("3 3\n" + "\n".join(" ".join(f"{v:.8f}" for v in row) for row in rot_raw) + "\n")
+        frames_n = len(jref["sequence"])
+
+        def argv(command, folder, ext):
+            return [command, "--model", "lagergehaeuse.ply", "--images", os.path.join(folder, f"color%d{ext}"),
+                    "--depths", os.path.join(folder, "depth%d.dpt"), "--device", str(dev)] + (
+                        ["--gt", "linemod"] if command == "evaluate" else [])
+
+        for command in ("evaluate", "detect"):
+            out, n, err = kept_launches(lambda: run_cli(argv(command, seq, ".jpg"), EXAMPLE))
+            text = re.sub(r"mean \d+\.\d ms \(\d+\.\d+ fps\)", "mean <t> ms (<f> fps)",
+                          re.sub(r"in \d+\.\d ms", "in <t> ms", out))
+            check(text.splitlines() == list(jref[f"{command}_lines"]), f"cli {command} over JPEG != JAX:\n{out}")
+            check(n["coarse_scores"] == n["fine_scores"] == frames_n and n["coarse_max"] == 0,
+                  f"cli {command} over JPEG launches {n}")
+            check(err["coarse_scores"] == err["fine_scores"] == 0, f"cli {command} over JPEG: kernel != plain {err}")
+            launches[command] = {"coarse": n["coarse_scores"] / frames_n, "fine": n["fine_scores"] / frames_n}
+            phase(13, f"cli {command} over {frames_n} JPEG frames (4:2:0 q95, 4:4:4 q75, 4:2:2 with restarts): "
+                      f"JAX's lines; launches a frame 2.1 {launches[command]['coarse']:g}, 2.2 "
+                      f"{launches[command]['fine']:g}, max|kernel - plain| {max(err.values())}")
+        # evaluate's ms a frame: the 3-frame command less the 1-frame command
+        # (the bank's load and the detector's set-up cancel), in turns
+        eval_ms = {".png": [], ".jpg": []}
+        for folder, ext in ((png_seq, ".png"), (seq, ".jpg"), (seq, ".jpg"), (png_seq, ".png")):
+            runs = []
+            for max_frames in ("1", "0"):
+                t0 = time.perf_counter()
+                run_cli(argv("evaluate", folder, ext) + ["--max-frames", max_frames], EXAMPLE)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            eval_ms[ext].append((runs[1] - runs[0]) / (frames_n - 1))
+        fixture_png = os.path.join(EXAMPLE, "benchmark", "img0.png")
+        decode = {
+            "JPEG 4:2:0 q95": host_ms(lambda: read_jpeg(os.path.join(JPEG_DIR, "fixture_420.jpg"), "color")),
+            "JPEG 4:4:4 q75": host_ms(lambda: read_jpeg(os.path.join(JPEG_DIR, "fixture_444_q75.jpg"), "color")),
+            "PNG": host_ms(lambda: read_png(fixture_png, "color")),
+        }
+        phase(13, "host decode of the 640x480 fixture frame, median (min) ms of 20: " + ", ".join(
+            f"{k} {v[0]:.3f} ({v[1]:.3f})" for k, v in decode.items()) + "; cli evaluate ms a frame (3 frames less 1, "
+            f"in turns PNG, JPEG, JPEG, PNG): JPEG {[round(v, 1) for v in eval_ms['.jpg']]}, PNG "
+            f"{[round(v, 1) for v in eval_ms['.png']]} ({card})")
+
+        # (c) the board image
+        board_path = os.path.join(tmp, "board.png")
+        ac.create_aruco_board(board_path)
+        check(np.array_equal(read_png(board_path, "anydepth"), aref["board"]), "board image != cv2's")
+        other = aruco.GridBoard((5, 7), 120.0, 20.0).generate_image((500, 730), 13)
+        check(np.array_equal(other, aref["board_other"]), "500x730 board image != cv2's")
+
+        # (d) ids, corners and poses on the test frames; (e) device maps
+        cam = CameraParameters(fx=1000.0, fy=1000.0, cx=960.0, cy=540.0, width=1920, height=1080)
+        frames = aruco_frames()
+        check(list(frames) == list(aref["frames"]), "test frames differ from the golden's")
+        worst = {"clean": [0.0, 0.0], "noisy": [0.0, 0.0], "converged": [0.0, 0.0]}
+        for name, frame in frames.items():
+            check(hashlib.sha256(frame.tobytes()).hexdigest() == str(aref[f"{name}_sha256"]), f"{name}: frame differs")
+            gray_d = aruco.to_gray(torch.from_numpy(frame).to(dev))
+            maps_d = aruco.threshold_maps(gray_d).cpu().numpy()
+            maps_h = aruco.threshold_maps(aruco.to_gray(torch.from_numpy(frame))).numpy()
+            check(np.array_equal(maps_d, maps_h), f"{name}: device threshold maps != CPU maps")
+            for refine, key in ((False, "plain"), (True, "refined")):
+                corners, ids = ac.detect_markers(frame, cam, refine=refine, device=dev)
+                check(np.array_equal(ids, aref[f"{name}_{key}_ids"]), f"{name} {key}: ids != cv2's")
+                check(np.array_equal(np.array(corners).reshape(-1, 4, 2), aref[f"{name}_{key}_corners"]),
+                      f"{name} {key}: corners != cv2's")
+            rot, t = ac.board_pose(corners, ids, cam)
+            kind = "noisy" if name == "noisy" else "clean"
+            worst[kind][0] = max(worst[kind][0], float(np.abs(t - aref[f"{name}_t"]).max()))
+            worst[kind][1] = max(worst[kind][1], float(np.abs(rot - aref[f"{name}_rot"]).max()))
+            worst["converged"][0] = max(worst["converged"][0], float(np.abs(t - aref[f"{name}_t_converged"]).max()))
+            worst["converged"][1] = max(worst["converged"][1],
+                                        float(np.abs(rot - aref[f"{name}_rot_converged"]).max()))
+        check(worst["clean"][0] <= ARUCO_POSE_MM and worst["clean"][1] <= ARUCO_POSE_ROT,
+              f"clean-frame pose vs JAX: {worst['clean']}")
+        check(worst["noisy"][0] <= 0.5 and worst["noisy"][1] <= 1e-3, f"noisy-frame pose vs JAX: {worst['noisy']}")
+        check(worst["converged"][0] <= ARUCO_CONVERGED_MM and worst["converged"][1] <= ARUCO_CONVERGED_ROT,
+              f"pose vs converged cv2.solvePnP: {worst['converged']}")
+        phase(13, f"ArUco on {len(frames)} frames (1920x1080): ids and corners equal cv2's (first pass and "
+                  f"refined), device threshold maps equal the CPU's; pose vs JAX: clean max|dt| "
+                  f"{worst['clean'][0]:.3g} mm, max|dR| {worst['clean'][1]:.3g}; noisy {worst['noisy'][0]:.3g} mm, "
+                  f"{worst['noisy'][1]:.3g}; every frame vs cv2.solvePnP rerun until it stops moving "
+                  f"{worst['converged'][0]:.3g} mm, {worst['converged'][1]:.3g}; board images equal cv2's")
+
+        # (f) the capture
+        cap = os.path.join(tmp, "capture")
+        depth_c = np.full((1080, 1920), 700, np.uint16)
+        check(ac.capture_ground_truth([(frames["jax"], depth_c)], cam, out_dir=cap, device=dev) == 1, "capture count")
+        check(hashlib.sha256(read_png(os.path.join(cap, "img0.png"), "color").tobytes()).hexdigest()
+              == str(aref["capture_img_sha256"]), "captured img0.png != JAX's")
+        check(hashlib.sha256(read_png(os.path.join(cap, "depth0.png"), "anydepth").tobytes()).hexdigest()
+              == str(aref["capture_depth_sha256"]), "captured depth0.png != JAX's")
+        pose = read_yamlcv(os.path.join(cap, "pose0.yml"))
+        check(np.abs(pose["rotMat"] - aref["capture_rot"]).max() <= ARUCO_POSE_ROT
+              and np.abs(np.array(pose["position"]) - aref["capture_position"]).max() <= ARUCO_POSE_MM,
+              "captured pose0.yml != JAX's")
+
+        # times: detect_board_pose at 1920x1080, whole and by its own stages,
+        # and the device stage's ops by CUDA events
+        frame = frames["view0"]
+        timer = StageTimer(sync=True, device=dev)
+        total, device_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ac.detect_board_pose(frame, cam, device=dev, timer=timer)
+            total.append((time.perf_counter() - t0) * 1e3)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            frame_d = torch.from_numpy(frame).to(dev)
+            start.record()
+            aruco.threshold_maps(aruco.to_gray(frame_d))
+            end.record()
+            torch.cuda.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        stages = {k: timer.totals[k] * 1e3 / timer.counts[k] for k in timer.totals}
+        source = [(f, depth_c) for f in frames.values()]
+        t0 = time.perf_counter()
+        saved = ac.capture_ground_truth(source, cam, out_dir=os.path.join(tmp, "capture_all"), device=dev)
+        capture_ms = (time.perf_counter() - t0) * 1e3 / len(source)
+        check(saved == len(source), f"capture saved {saved} of {len(source)} frames")
+        phase(13, f"detect_board_pose at 1920x1080 (view0, 35 markers), host clock: median "
+                  f"{statistics.median(total):.3f} ms of 5; its stages, mean ms of 5 (StageTimer synchronised with "
+                  "the card): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                  + f"; gray+threshold's device ops by CUDA events, median {statistics.median(device_ms):.3f} ms; "
+                    f"capture {capture_ms:.1f} ms a frame over {len(source)} frames (detection, PNG and YAML "
+                    f"writes) ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2165,7 +2395,10 @@ def main() -> int:
     ingest = ingest_phase(dev, card, det, det_big, det_dual, {"fixture": ref, "96300": big_ref, "dual": dual_ref},
                           color, depth, check_pose)
 
-    # -- phase 13: the probes
+    # -- phase 13: JPEG frames and the ArUco ground-truth capture
+    jpeg_launches = jpeg_aruco_phase(dev, card)
+
+    # -- phase 14: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -2198,12 +2431,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(13, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(14, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 14: results
+    # -- phase 15: results
     def sharded_launches(i):
         """Phase 11's launches a frame a rank of kernel i (2.1, 2.2, 2.3)
         and its max|kernel - plain| over every rank's launches, by world and
@@ -2242,12 +2475,14 @@ def main() -> int:
          "dual": dual("coarse", dual_launches["coarse"]), "icp": {"launches": icp_launches["coarse"]},
          "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]},
          "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()},
+         "jpeg_launches_a_frame": {path: n_["coarse"] for path, n_ in jpeg_launches.items()},
          "sharded": sharded_launches(0), **ingest_launches("coarse_scores")},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
          "dual": dual("fine", dual_launches["fine"]), "icp": {"launches": icp_launches["fine"]},
          "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]},
          "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()},
+         "jpeg_launches_a_frame": {path: n_["fine"] for path, n_ in jpeg_launches.items()},
          "sharded": sharded_launches(1), **ingest_launches("fine_scores")},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
@@ -2263,7 +2498,7 @@ def main() -> int:
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
               *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
-    phase(14, "seconds from the start to each phase's first line: "
+    phase(15, "seconds from the start to each phase's first line: "
               + ", ".join(f"{n} {t:.1f}" for n, t in sorted(PHASE_AT.items())))
     print(card)
     print(json.dumps({"kernels": kernels}))

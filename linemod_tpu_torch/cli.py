@@ -1,7 +1,7 @@
 """Command-line entry points of the PyTorch port (counterpart of
-`linemod_tpu/cli.py`, which stands in for the reference's executables,
-CMakeLists.txt:67-69: `Template_Generator` -> `generate`, `Detector` ->
-`detect` and `evaluate`).
+`linemod_tpu/cli.py`, which stands in for the reference's three
+executables, CMakeLists.txt:67-69: `Template_Generator` -> `generate`,
+`Detector` -> `detect` and `evaluate`, `Arcuo_Benchmark` -> `aruco`).
 
 The flags, defaults, printed lines and exit codes are the JAX package's,
 and configuration comes from the same `linemod_settings.yml`. `--device`
@@ -15,15 +15,19 @@ Usage:
         [--images benchmark/img%d.png --depths benchmark/depth%d.png] \\
         [--benchmark] [--display OUT_DIR] [--profile]
     python -m linemod_tpu_torch.cli evaluate --model lagergehaeuse.ply \\
-        [--images benchmarkLINEMOD/color%d.png --depths benchmarkLINEMOD/depth%d.dpt \\
+        [--images benchmarkLINEMOD/color%d.jpg --depths benchmarkLINEMOD/depth%d.dpt \\
          --gt linemod]   # or --gt yml for the reference's pose%d.yml capture format
+    python -m linemod_tpu_torch.cli aruco --out board.png
+    python -m linemod_tpu_torch.cli aruco --capture --images capture/img%d.png \\
+        --depths capture/depth%d.png --out-dir benchmark
     python -m linemod_tpu_torch.cli convert --to-reference DIR --bank banks/m.npz
 
-Frames are PNG (depth also `.dpt`): the port has no JPEG decoder, and a
-JPEG frame raises a ValueError (pipeline/sensors.py). `detect` reads a
-`%d` PNG sequence through the prefetching loader (`_frame_source`). Not
-ported: `aruco` (OpenCV's aruco module) and `detect --show` (a GUI-capable
-OpenCV).
+Color frames are PNG or JPEG, told apart by their leading bytes as
+`cv2.imread` does (pipeline/sensors.py); depth frames PNG or `.dpt`.
+`detect` reads a `%d` PNG sequence through the prefetching loader
+(`_frame_source`), any other sequence a frame at a time. Not ported:
+`detect --show` and `aruco --interactive` (a GUI-capable OpenCV) and
+`aruco --images kinect` (libfreenect2 and USB).
 """
 
 from __future__ import annotations
@@ -32,7 +36,6 @@ import argparse
 import os
 import sys
 import time
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -98,7 +101,7 @@ def cmd_detect(args):
     from .utils.draw import draw_coordinate_system, draw_features
     from .utils.mesh_io import load_mesh
     from .utils.png import write_png
-    from .utils.profiling import StageTimer
+    from .utils.profiling import StageTimer, maybe_stage
 
     dev = device_from_flag(args.device)
     loaded = _load_bank(args)
@@ -118,14 +121,11 @@ def cmd_detect(args):
     # sync=False: wall-clock stages; detect.fetch waits for the device
     timer = StageTimer(sync=False) if args.profile else None
 
-    def stage(name):
-        return timer.stage(name) if timer else nullcontext()
-
     frames = _frame_source(args.images, args.depths, cam.width, cam.height)
     i = -1
     times = []
     while True:
-        with stage("decode"):
+        with maybe_stage(timer, "decode"):
             frame = next(frames, None)
         if frame is None:
             break
@@ -133,23 +133,23 @@ def cmd_detect(args):
         color, depth = frame
         t0 = time.time()
         dbg = DetectionDebug() if args.display else None
-        with stage("detect"):
+        with maybe_stage(timer, "detect"):
             if timer:
                 # the host's enqueue, the wait for the device and the copy of
                 # the packed candidates, and the host half (grouping, checks,
                 # pose math)
-                with stage("detect.submit"):
+                with maybe_stage(timer, "detect.submit"):
                     handle = det.detect_submit(color, depth)
-                with stage("detect.fetch"):
+                with maybe_stage(timer, "detect.fetch"):
                     handle = (handle[0].cpu(), handle[1], handle[2])
-                with stage("detect.host_post"):
+                with maybe_stage(timer, "detect.host_post"):
                     poses = det.detect_collect(handle, args.num_objects, debug=dbg)
             else:
                 poses = det.detect(color, depth, args.num_objects, debug=dbg)
         times.append(time.time() - t0)
         msg = f"frame {i}: {len(poses)} pose(s) in {times[-1]*1000:.1f} ms"
         if poses and bench is not None:
-            with stage("benchmark"):
+            with maybe_stage(timer, "benchmark"):
                 gt = read_ground_truth_pose(
                     os.path.join(os.path.dirname(args.images % 0), f"pose{i}.yml")
                 )
@@ -161,7 +161,7 @@ def cmd_detect(args):
             bench.next_image()
         print(msg)
         if args.display and poses:
-            with stage("display"):
+            with maybe_stage(timer, "display"):
                 out = color.copy()
                 # feature dots of every passing check (drawResponse analogue,
                 # src/HighLevelLinemod.cpp:545-566) + pose axes
@@ -301,6 +301,39 @@ def cmd_convert(args):
     return 0
 
 
+def cmd_aruco(args):
+    from .pipeline.aruco_capture import create_aruco_board
+
+    if args.capture:
+        # ground-truth dataset capture (the Arcuo_Benchmark loop,
+        # src/Aruco.cpp:36-110): every board-detected frame is saved
+        # headlessly; --interactive (the HUD) needs a GUI and raises
+        from .config import load_settings
+        from .pipeline.aruco_capture import capture_ground_truth, capture_ground_truth_interactive
+
+        dev = device_from_flag(args.device)
+        cam, _ = load_settings(args.settings)
+        if args.images == "kinect":
+            from .pipeline.sensors import Kinect2Source
+
+            src = Kinect2Source()
+        else:
+            # a frame at a time: a capture's frames need not be the
+            # settings' size, which the prefetching loader holds them to
+            from .pipeline.sensors import FileSequenceSource
+
+            src = FileSequenceSource(args.images, args.depths)
+        if args.interactive:
+            n = capture_ground_truth_interactive(src, cam, args.out_dir)
+        else:
+            n = capture_ground_truth(src, cam, args.out_dir, device=dev)
+        print(f"captured {n} frames to {args.out_dir}")
+        return 0
+    create_aruco_board(args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="linemod_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -338,8 +371,7 @@ def main(argv=None):
     e.add_argument("--model", required=True)
     e.add_argument(
         "--images", default="benchmarkLINEMOD/color%d.jpg",
-        help="frame template (reference layout: benchmarkLINEMOD/color%%d.jpg; "
-             "the port decodes PNG frames only)",
+        help="frame template (reference layout: benchmarkLINEMOD/color%%d.jpg)",
     )
     e.add_argument(
         "--depths", default="benchmarkLINEMOD/depth%d.dpt",
@@ -355,6 +387,22 @@ def main(argv=None):
     e.add_argument("--max-frames", type=int, default=0)
     device_flag(e)
     e.set_defaults(fn=cmd_evaluate)
+
+    a = sub.add_parser(
+        "aruco", help="aruco board image / ground-truth dataset capture"
+    )
+    a.add_argument("--out", default="aruco_board.png")
+    a.add_argument("--capture", action="store_true",
+                   help="capture img/depth/pose ground-truth frames")
+    a.add_argument("--interactive", action="store_true",
+                   help="HUD capture loop (TAB=save, ESC=quit); needs a GUI")
+    a.add_argument("--settings", default="linemod_settings.yml")
+    a.add_argument("--images", default="capture/img%d.png",
+                   help="frame source template, or 'kinect' for live capture")
+    a.add_argument("--depths", default="capture/depth%d.png")
+    a.add_argument("--out-dir", default="benchmark")
+    device_flag(a)
+    a.set_defaults(fn=cmd_aruco)
 
     c = sub.add_parser(
         "convert",

@@ -1,7 +1,7 @@
 """Configuration: camera, template settings and model sidecars.
 
 Counterpart of `linemod_tpu/config.py`, with the same dataclasses and field
-names, read through `utils/cvyaml` instead of PyYAML.
+names, read through `utils/yamlcv.read_yamlcv` instead of PyYAML.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import os
 
 import numpy as np
 
-from .utils.cvyaml import read_cvyaml
+from .utils.yamlcv import read_yamlcv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +87,7 @@ class ModelProperties:
 
 def load_settings(path: str = "linemod_settings.yml"):
     """Read a settings YAML into (CameraParameters, TemplateSettings)."""
-    d = read_cvyaml(path)
+    d = read_yamlcv(path)
     dist = d.get("distortion parameters")
     dist = tuple(np.asarray(dist).ravel()) if dist is not None else (0.0,) * 5
     cam = CameraParameters(
@@ -128,7 +128,7 @@ def load_model_properties(model_path: str) -> ModelProperties:
     path = os.path.splitext(model_path)[0] + ".yml"
     if not os.path.exists(path):
         return ModelProperties()
-    d = read_cvyaml(path)
+    d = read_yamlcv(path)
     lower = tuple(np.asarray(d.get("lower color range", (0, 0, 0, 0))).ravel()[:3])
     upper = tuple(np.asarray(d.get("upper color range", (255, 255, 255, 0))).ravel()[:3])
     planes = tuple(np.asarray(d.get("planes of symmetry", (0, 0, 0))).ravel()[:3])

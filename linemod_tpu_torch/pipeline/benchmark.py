@@ -24,14 +24,14 @@ from ..ops.metrics import (
 )
 from ..ops.rasterizer import mesh_to_arrays
 from ..types import ObjectPose
-from ..utils.cvyaml import read_cvyaml
+from ..utils.yamlcv import read_yamlcv
 from ..utils.geometry import mat_to_quat, quat_to_mat, rotation_about_axis
 from ..utils.ply import load_ply
 
 
 def read_ground_truth_pose(path: str) -> ObjectPose:
     """Pose YAML with `rotMat` (3x3) and `position` (mm)."""
-    d = read_cvyaml(path)
+    d = read_yamlcv(path)
     rot = np.asarray(d["rotMat"], np.float64)
     pos = np.asarray(d["position"], np.float64).ravel()
     return ObjectPose(translation=pos, quaternion=mat_to_quat(rot))

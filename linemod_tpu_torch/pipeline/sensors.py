@@ -3,10 +3,12 @@ replaces the reference's Kinect2 wrapper, src/Kinect2.cpp).
 
 Sensors are iterables yielding (color BGR uint8 [H, W, 3], depth mm uint16
 [H, W]) pairs. `FileSequenceSource` replays recorded sequences (the
-detector's default input, detector.cpp:12-25): color frames are PNG, depth
-frames PNG or the LINEMOD dataset's `.dpt`. The port has no image codec
-library, so it decodes PNG only (`utils/png`): any other color file, a JPEG
-for one, raises a ValueError that names it, and no frame is skipped.
+detector's default input, detector.cpp:12-25): color frames are PNG or
+JPEG (the public LINEMOD layout's `color%d.jpg`), depth frames PNG or the
+LINEMOD dataset's `.dpt`. A file is decoded by its leading bytes, as
+`cv2.imread` picks its codec: PNG by `utils/png`, JPEG by `utils/jpeg`;
+any other format raises a ValueError that names the file, and no frame is
+skipped.
 `Kinect2Source` keeps the reference's frame math (`from_raw_frames`); its
 live device needs libfreenect2 and USB, which the port does not bind.
 """
@@ -18,6 +20,8 @@ import os
 import numpy as np
 
 from ..utils.io import load_depth_linemod_dataset
+from ..utils.jpeg import SOI, read_jpeg
+from ..utils.png import _SIGNATURE as PNG_SIGNATURE
 from ..utils.png import read_png
 
 
@@ -28,13 +32,25 @@ def frame_paths(img_template: str, depth_template: str, i: int) -> tuple:
     return img, depth
 
 
+def read_image(path: str, mode: str) -> np.ndarray:
+    """cv2.imread(path, IMREAD_COLOR) (mode "color") or IMREAD_ANYDEPTH
+    ("anydepth") of a PNG or JPEG file, told apart by their leading bytes."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        return read_png(path, mode)
+    if head[:2] == SOI:
+        return read_jpeg(path, mode)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
 def load_frame(img_path: str, depth_path: str) -> tuple:
     """(color, depth) of one frame on the host."""
-    color = read_png(img_path, "color")
+    color = read_image(img_path, "color")
     if depth_path.endswith(".dpt"):
         depth = load_depth_linemod_dataset(depth_path)
     else:
-        depth = read_png(depth_path, "anydepth")
+        depth = read_image(depth_path, "anydepth")
     return color, depth
 
 

@@ -23,7 +23,6 @@ import argparse
 import dataclasses
 import json
 import os
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -39,6 +38,7 @@ from ..pipeline.pose_detection import PoseDetection
 from ..pipeline.synth_eval import MODES, SyntheticEvalSet, eval_camera
 from ..utils.geometry import quat_to_mat
 from ..utils.ply import load_ply
+from ..utils.profiling import maybe_stage
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 EXAMPLE = os.path.join(REPO, "example")
@@ -92,17 +92,14 @@ class Protocol:
     def run_frame(self, det: PoseDetection, index: int, mode: str, timer=None) -> dict:
         """One frame: synthesis, detect, and VSD / ADD-S of the first pose
         (timed as stages when a StageTimer is given)."""
-        def stage(name):
-            return timer.stage(name) if timer else nullcontext()
-
-        with stage("synthesis"):
+        with maybe_stage(timer, "synthesis"):
             color, depth, gt, meta = self.gen.make_frame(index, mode)
-        with stage("detect"):
+        with maybe_stage(timer, "detect"):
             poses = det.detect(color, depth, 1)
         rec = {"frame": index, "color": color, "depth": depth, "gt": gt, "meta": meta,
                "pose": poses[0] if poses else None}
         if poses:
-            with stage("scoring"):
+            with maybe_stage(timer, "scoring"):
                 rec["vsd"] = self.bench.score_vsd(depth.astype(np.float32), gt, poses[0])
                 rec["adds"] = self.bench.score_adds(gt, poses[0])
         return rec

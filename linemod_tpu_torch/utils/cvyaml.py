@@ -1,26 +1,18 @@
-"""Reader for the OpenCV-FileStorage YAML subset the project's files use.
+"""Parser for the OpenCV-FileStorage YAML subset the project's files use,
+without PyYAML.
 
-Counterpart of `linemod_tpu/utils/yamlcv.read_yamlcv`, without PyYAML. The
-settings file, the per-model sidecars and the ground-truth pose files hold
-only top-level `key: value` pairs, where a value is one of:
-
-- a scalar: an integer, a float, a double-quoted string or a bare string;
-- an inline list `[ a, b, ... ]`, which may run over several lines;
-- an `!!opencv-matrix` block: indented `rows`, `cols`, `dt` and `data`
-  entries, returned as a float64 numpy array of shape (rows, cols).
-
-`%YAML` directives, `---` and `#` comment lines are skipped.
-
-`parse_yaml` reads the deeper block-and-flow subset of the reference's
-bank pair (`utils/refformat.py`), as PyYAML would after the JAX package's
-sanitizing.
+`parse_yaml` reads block mappings and block sequences, and flow mappings
+and flow sequences that may run over many lines, into dicts, lists and
+scalars (an integer, a float, a double-quoted string or a bare string).
+`%YAML` directives, `---` and `#` comment lines are skipped, and an
+`!!opencv-matrix` node is read as the mapping it tags.
+`utils/yamlcv.read_yamlcv` builds the settings, model and pose files'
+reader over it, and `utils/refformat` the reference's bank pair's.
 """
 
 from __future__ import annotations
 
 import re
-
-import numpy as np
 
 
 def _scalar(text: str):
@@ -35,74 +27,7 @@ def _scalar(text: str):
     return text
 
 
-def _inline_list(text: str) -> list:
-    body = text.strip()
-    if not (body.startswith("[") and body.endswith("]")):
-        raise ValueError(f"malformed inline list: {text!r}")
-    return [_scalar(v) for v in body[1:-1].split(",") if v.strip()]
-
-
-def _logical_lines(text: str):
-    """(indent, content) per entry, with multi-line inline lists joined."""
-    pending = None
-    for line in text.splitlines():
-        stripped = line.strip()
-        if pending is not None:
-            pending = (pending[0], pending[1] + " " + stripped)
-            if "]" in stripped:
-                yield pending
-                pending = None
-            continue
-        if not stripped or stripped.startswith(("#", "%")) or stripped == "---":
-            continue
-        entry = (len(line) - len(line.lstrip()), stripped)
-        if "[" in stripped and "]" not in stripped:
-            pending = entry
-        else:
-            yield entry
-    if pending is not None:
-        raise ValueError("unterminated inline list")
-
-
-def parse_cvyaml(text: str) -> dict:
-    """Parse FileStorage YAML text into a dict (matrices -> numpy arrays)."""
-    out: dict = {}
-    matrix_key = None
-    matrix: dict = {}
-
-    def close_matrix():
-        if matrix_key is not None:
-            data = np.asarray(matrix["data"], np.float64)
-            out[matrix_key] = data.reshape(int(matrix["rows"]), int(matrix["cols"]))
-
-    for indent, content in _logical_lines(text):
-        key, sep, value = content.partition(":")
-        if not sep:
-            raise ValueError(f"expected 'key: value', got {content!r}")
-        key = key.strip()
-        value = value.strip()
-        if matrix_key is not None and indent > 0:
-            matrix[key] = _inline_list(value) if value.startswith("[") else _scalar(value)
-            continue
-        close_matrix()
-        matrix_key = None
-        if value == "!!opencv-matrix":
-            matrix_key, matrix = key, {}
-        elif value.startswith("["):
-            out[key] = _inline_list(value)
-        else:
-            out[key] = _scalar(value)
-    close_matrix()
-    return out
-
-
-def read_cvyaml(path: str) -> dict:
-    """Read an OpenCV FileStorage YAML file into a dict."""
-    with open(path) as f:
-        return parse_cvyaml(f.read())
-
-
-# -- the block and flow subset of the reference's bank pair ------------------
+# -- the block and flow subset ----------------------------------------------
 #
 # `linemod_templates.yml.gz` nests deeper than the settings files: block
 # mappings and block sequences (`- key: value` items), and flow mappings and

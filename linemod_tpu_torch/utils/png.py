@@ -11,7 +11,8 @@ depth, uint16 or uint8. The scanlines are unfiltered by the port's host
 C++ (`csrc/png_unfilter.cpp`, built with g++ at first use into `build/`
 and bound with ctypes); `_unfilter` is its plain numpy version, which the
 tests hold it to. `encode_png` writes any format with one chosen filter
-on every row; `write_png` writes 8-bit RGB and 16-bit gray with filter 0. Color is in **BGR** order on both sides, as `cv2.imread`
+on every row; `write_png` writes 8-bit RGB, 8-bit gray and 16-bit gray
+with filter 0. Color is in **BGR** order on both sides, as `cv2.imread`
 returns it and `cv2.imwrite` takes it: the HSV color check reads BGR
 (ops/postprocess.py) and the gradient quantizer breaks exact channel ties
 by the first maximum, so the channel order is part of the result.
@@ -133,7 +134,7 @@ def read_png(path: str, mode: str) -> np.ndarray:
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file (the port decodes PNG images only)")
+        raise ValueError(f"{path}: not a PNG file")
     pos = 8
     header = palette = None
     idat = []
@@ -215,15 +216,17 @@ def encode_png(rows, w: int, ctype: int, depth: int, ftype: int = 0, chunks=(), 
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Encode BGR uint8 [H, W, 3] as 8-bit RGB, or uint16 [H, W] as 16-bit
-    gray, with filter 0 on every row."""
+    """Encode BGR uint8 [H, W, 3] as 8-bit RGB, uint8 [H, W] as 8-bit gray
+    or uint16 [H, W] as 16-bit gray, with filter 0 on every row."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         ctype, depth, rows = 2, 8, img[:, :, ::-1]
+    elif img.dtype == np.uint8 and img.ndim == 2:
+        ctype, depth, rows = 0, 8, img
     elif img.dtype == np.uint16 and img.ndim == 2:
         ctype, depth, rows = 0, 16, img.astype(">u2")
     else:
-        raise ValueError(f"write_png takes BGR uint8 [H, W, 3] or uint16 [H, W], got {img.dtype} {img.shape}")
+        raise ValueError(f"write_png takes BGR uint8 [H, W, 3], uint8 [H, W] or uint16 [H, W], got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     with open(path, "wb") as f:
         f.write(encode_png(np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1), w, ctype, depth))

@@ -6,6 +6,8 @@
 - `StageTimer`: named wall-clock stages, optionally synchronised with the
   device at each stage's start and end, for per-frame breakdowns in the
   detect loop. Its `summary()` has the JAX package's format.
+- `maybe_stage(timer, name)`: `timer.stage(name)`, or nothing without a
+  timer, for functions that take an optional timer.
 """
 
 from __future__ import annotations
@@ -66,3 +68,8 @@ class StageTimer:
             n = self.counts[name]
             lines.append(f"{name:<24} {total*1000:8.2f} ms total  {total/n*1000:8.2f} ms/call  x{n}")
         return "\n".join(lines)
+
+
+def maybe_stage(timer, name: str):
+    """`timer.stage(name)` where there is a timer, else an empty context."""
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()

@@ -1,10 +1,32 @@
-"""OpenCV-FileStorage-compatible YAML writing (the port's own copy of
-`linemod_tpu/utils/yamlcv.write_yamlcv`). The reading side is
-`utils/cvyaml`, which needs no PyYAML."""
+"""OpenCV-FileStorage-compatible YAML (the port's counterpart of
+`linemod_tpu/utils/yamlcv.py`): `write_yamlcv` is the JAX package's
+writer, `read_yamlcv` its reader, built over `utils/cvyaml.parse_yaml`
+instead of PyYAML."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from .cvyaml import parse_yaml
+
+
+def _resolve(node):
+    """Matrix mappings (rows, cols, dt, data) -> float64 arrays, recursively."""
+    if isinstance(node, dict):
+        if {"rows", "cols", "dt", "data"} <= set(node):
+            return np.array(node["data"], np.float64).reshape(int(node["rows"]), int(node["cols"]))
+        return {k: _resolve(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolve(v) for v in node]
+    return node
+
+
+def read_yamlcv(path: str) -> dict:
+    """Read an OpenCV FileStorage YAML file into a dict: `!!opencv-matrix`
+    nodes become float64 arrays of shape (rows, cols)."""
+    with open(path) as f:
+        data = parse_yaml(f.read())
+    return {} if data is None else _resolve(data)
 
 
 def _fmt_scalar(v) -> str:
@@ -21,7 +43,7 @@ def write_yamlcv(path: str, data: dict) -> None:
     """Write a dict to OpenCV-FileStorage-compatible YAML.
 
     numpy 2-D arrays are emitted as `!!opencv-matrix` nodes so the files can be
-    read back by OpenCV's FileStorage (and by `utils/cvyaml.read_cvyaml`).
+    read back by OpenCV's FileStorage (and by `read_yamlcv`).
     """
     out = ["%YAML:1.0", "---"]
     for key, val in data.items():

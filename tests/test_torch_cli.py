@@ -84,8 +84,10 @@ def _argv(tmp, which):
         "evaluate_yml": ["evaluate", "--model", "lagergehaeuse.ply", "--images", "benchmark/img%d.png",
                          "--depths", "benchmark/depth%d.png", "--gt", "yml", "--max-frames", "1"],
         "evaluate_linemod": ["evaluate", "--model", "lagergehaeuse.ply", "--images",
-                             os.path.join(seq, "color%d.png"), "--depths", os.path.join(seq, "depth%d.dpt"),
+                             os.path.join(seq, "color%d.jpg"), "--depths", os.path.join(seq, "depth%d.dpt"),
                              "--gt", "linemod", "--max-frames", "1"],
+        "detect_jpeg": ["detect", "--model", "lagergehaeuse.ply", "--images", os.path.join(seq, "color%d.jpg"),
+                        "--depths", os.path.join(seq, "depth%d.dpt"), "--max-frames", "1"],
     }
 
 
@@ -97,7 +99,7 @@ def runs(tmp_path_factory):
     from linemod_tpu_torch.cli import main as port_main
 
     tmp = tmp_path_factory.mktemp("cli")
-    linemod_sequence(tmp)
+    linemod_sequence(tmp, ext=".jpg")
     out = {"tmp": tmp}
     for which, main, extra in (("jax", jax_main, []), ("port", port_main, ["--device", "cpu"])):
         for name, argv in _argv(tmp, which).items():
@@ -147,16 +149,21 @@ def test_detect_overlay_equals_jax(runs):
 
 
 @pytest.mark.parametrize("command", ["evaluate", "detect"])
-def test_jpeg_frame_raises(tmp_path, command):
-    from linemod_tpu_torch.cli import main
+def test_jpeg_sequence_equals_jax(runs, command):
+    """Over the LINEMOD layout's JPEG frames (color0.jpg written by
+    cv2.imwrite, depth0.dpt) both CLIs print the same lines: the port
+    decodes the JPEG as cv2.imread does, bit for bit."""
+    import cv2
 
-    seq = linemod_sequence(tmp_path, ext=".jpg")
-    argv = [command, "--model", "lagergehaeuse.ply", "--images", os.path.join(seq, "color%d.jpg"),
-            "--depths", os.path.join(seq, "depth%d.dpt"), "--max-frames", "1", "--device", "cpu"]
-    if command == "evaluate":
-        argv += ["--gt", "linemod"]
-    with pytest.raises(ValueError, match=r"color0\.jpg.*PNG"):
-        run_cli(main, argv)
+    from linemod_tpu_torch.pipeline.sensors import load_frame
+
+    run = runs["evaluate_linemod" if command == "evaluate" else "detect_jpeg"]
+    (rc_j, out_j, _), (rc_p, out_p, _) = run["jax"], run["port"]
+    assert rc_p == rc_j == 0
+    assert masked(out_p) == masked(out_j)
+    seq = os.path.join(str(runs["tmp"]), "benchmarkLINEMOD")
+    color, _ = load_frame(os.path.join(seq, "color0.jpg"), os.path.join(seq, "depth0.dpt"))
+    assert np.array_equal(color, cv2.imread(os.path.join(seq, "color0.jpg")))
 
 
 def test_cuda_without_card_is_an_error(monkeypatch):
@@ -167,7 +174,7 @@ def test_cuda_without_card_is_an_error(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["detect", "--model", "lagergehaeuse.ply"], ["evaluate", "--model", "lagergehaeuse.ply"],
-                 ["generate"]):
+                 ["generate"], ["aruco", "--capture"]):
         with pytest.raises(SystemExit, match="no CUDA device"):
             run_cli(cli.main, argv)
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -251,7 +258,7 @@ def test_dpt_bytes_equal_jax(tmp_path):
     assert np.array_equal(jax_load(str(tmp_path / "port.dpt")), depth)
 
 
-@pytest.mark.parametrize("kind", ["color", "depth"])
+@pytest.mark.parametrize("kind", ["color", "gray", "depth"])
 def test_write_png_reads_back(tmp_path, kind):
     """write_png's files read back equal by the port's decoder and by
     cv2.imread."""
@@ -262,6 +269,8 @@ def test_write_png_reads_back(tmp_path, kind):
     rng = np.random.default_rng(4)
     if kind == "color":
         img, flag = rng.integers(0, 256, (45, 67, 3), dtype=np.uint8), cv2.IMREAD_COLOR
+    elif kind == "gray":
+        img, flag = rng.integers(0, 256, (45, 67), dtype=np.uint8), cv2.IMREAD_UNCHANGED
     else:
         img, flag = rng.integers(0, 65536, (45, 67), dtype=np.uint16), cv2.IMREAD_ANYDEPTH
     path = str(tmp_path / f"{kind}.png")
@@ -273,16 +282,18 @@ def test_write_png_reads_back(tmp_path, kind):
 
 
 def test_file_sequence_source_equals_jax(tmp_path):
-    """FileSequenceSource over PNG and .dpt sequences gives JAX's frames;
-    ArraySource replays its frames."""
+    """FileSequenceSource over PNG, JPEG and .dpt sequences gives JAX's
+    frames; ArraySource replays its frames."""
     from linemod_tpu.pipeline.sensors import FileSequenceSource as JaxSource
 
     from linemod_tpu_torch.pipeline.sensors import ArraySource, FileSequenceSource
 
     bench = os.path.join(EXAMPLE, "benchmark")
     seq = linemod_sequence(tmp_path)
+    linemod_sequence(tmp_path, ext=".jpg")
     for images, depths in ((os.path.join(bench, "img%d.png"), os.path.join(bench, "depth%d.png")),
-                           (os.path.join(seq, "color%d.png"), os.path.join(seq, "depth%d.dpt"))):
+                           (os.path.join(seq, "color%d.png"), os.path.join(seq, "depth%d.dpt")),
+                           (os.path.join(seq, "color%d.jpg"), os.path.join(seq, "depth%d.dpt"))):
         got, want = list(FileSequenceSource(images, depths)), list(JaxSource(images, depths))
         assert len(got) == len(want) == 1
         for (c, d), (wc, wd) in zip(got, want):
@@ -348,8 +359,7 @@ def test_stage_timer_sync_on_cpu_and_trace(tmp_path):
 def test_write_yamlcv_equals_jax(tmp_path):
     from linemod_tpu.utils.yamlcv import write_yamlcv as jax_write
 
-    from linemod_tpu_torch.utils.cvyaml import read_cvyaml
-    from linemod_tpu_torch.utils.yamlcv import write_yamlcv
+    from linemod_tpu_torch.utils.yamlcv import read_yamlcv, write_yamlcv
 
     data = {"rotMat": np.arange(9, dtype=np.float64).reshape(3, 3) / 7.0, "position": [1.5, -2.0, 600.25],
             "flags": (True, False), "count": np.int32(3), "scale": 0.1, "name": "lagergehaeuse",
@@ -357,7 +367,7 @@ def test_write_yamlcv_equals_jax(tmp_path):
     write_yamlcv(str(tmp_path / "port.yml"), data)
     jax_write(str(tmp_path / "jax.yml"), data)
     assert (tmp_path / "port.yml").read_text() == (tmp_path / "jax.yml").read_text()
-    back = read_cvyaml(str(tmp_path / "port.yml"))
+    back = read_yamlcv(str(tmp_path / "port.yml"))
     assert np.array_equal(back["rotMat"], data["rotMat"]) and back["position"] == [1.5, -2.0, 600.25]
 
 
@@ -369,8 +379,7 @@ def test_generate_equals_jax(tmp_path):
 
     from linemod_tpu_torch.cli import main as port_main
     from linemod_tpu_torch.models.template_bank import TemplateBank
-    from linemod_tpu_torch.utils.cvyaml import read_cvyaml
-    from linemod_tpu_torch.utils.yamlcv import write_yamlcv
+    from linemod_tpu_torch.utils.yamlcv import read_yamlcv, write_yamlcv
 
     models = tmp_path / "models"
     models.mkdir()
@@ -382,7 +391,7 @@ def test_generate_equals_jax(tmp_path):
         f.writelines(f"v {x} {y} {z}\n" for x, y, z in verts)
         f.writelines(f"f {a+1} {b+1} {c+1}\n" for a, b, c in faces)
     write_yamlcv(str(models / "cube.yml"), {"planes of symmetry": [1, 1, 1]})
-    settings = read_cvyaml(os.path.join(EXAMPLE, "linemod_settings.yml"))
+    settings = read_yamlcv(os.path.join(EXAMPLE, "linemod_settings.yml"))
     settings.update({"model folder": str(models) + "/", "model file ending": ".obj", "distance start": 600,
                      "distance stop": 600, "icosahedron subdivisions": 0, "in plane rotation starting angle": -45,
                      "in plane rotation stopping angle": 45, "in plane rotation angle step": 45})
@@ -397,3 +406,113 @@ def test_generate_equals_jax(tmp_path):
     assert got.num_templates == want.num_templates == 9 and got.class_id == want.class_id == "cube.obj"
     for f in ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull"):
         assert getattr(got, f).dtype == getattr(want, f).dtype and np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+# -- aruco and the pose files ------------------------------------------------------
+
+def test_aruco_board_equals_jax(tmp_path):
+    """`aruco --out` writes JAX's board image pixel for pixel (8-bit gray)
+    and prints JAX's line."""
+    import cv2
+
+    from linemod_tpu.cli import main as jax_main
+
+    from linemod_tpu_torch.cli import main as port_main
+
+    rc_j, out_j, _ = run_cli(jax_main, ["aruco", "--out", str(tmp_path / "jax.png")])
+    rc_p, out_p, _ = run_cli(port_main, ["aruco", "--out", str(tmp_path / "port.png")])
+    assert rc_p == rc_j == 0 and out_p == out_j.replace("jax.png", "port.png")
+    want = cv2.imread(str(tmp_path / "jax.png"), cv2.IMREAD_UNCHANGED)
+    got = cv2.imread(str(tmp_path / "port.png"), cv2.IMREAD_UNCHANGED)
+    assert want.shape == got.shape == (1000, 720) and got.dtype == np.uint8
+    assert np.array_equal(got, want)
+
+
+def _capture_sequence(root) -> str:
+    """Two views of the printed board at the settings' camera (640x480, with
+    its distortion ignored by the renderer) and a flat frame with no board,
+    as a PNG sequence with flat depths."""
+    import cv2
+
+    from linemod_tpu_torch.config import load_settings
+    from linemod_tpu_torch.ops.aruco import GridBoard
+    from linemod_tpu_torch.pipeline.aruco_capture import board_view
+
+    cam, _ = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
+    board = GridBoard((5, 7), 120.0, 20.0).generate_image((720, 1000), 20)
+    seq = os.path.join(str(root), "capture")
+    os.makedirs(seq)
+    views = [((0.1, -0.2, 0.05), (-340.0, -480.0, 4200.0)), None, ((0.3, 0.1, -0.2), (-300.0, -500.0, 4500.0))]
+    for i, view in enumerate(views):
+        frame = np.full((480, 640, 3), 128, np.uint8) if view is None else board_view(board, cam, *map(np.array, view))
+        cv2.imwrite(os.path.join(seq, f"img{i}.png"), frame)
+        cv2.imwrite(os.path.join(seq, f"depth{i}.png"), np.full((480, 640), 700 + i, np.uint16))
+    return seq
+
+
+@pytest.fixture(scope="module")
+def captures(tmp_path_factory):
+    """`aruco --capture` over the board sequence through both CLIs:
+    {"jax"/"port": (rc, out, err, out_dir)}."""
+    from linemod_tpu.cli import main as jax_main
+
+    from linemod_tpu_torch.cli import main as port_main
+
+    tmp = tmp_path_factory.mktemp("aruco")
+    seq = _capture_sequence(tmp)
+    out = {}
+    for which, main, extra in (("jax", jax_main, []), ("port", port_main, ["--device", "cpu"])):
+        out_dir = os.path.join(str(tmp), which)
+        argv = ["aruco", "--capture", "--images", os.path.join(seq, "img%d.png"),
+                "--depths", os.path.join(seq, "depth%d.png"), "--out-dir", out_dir]
+        out[which] = run_cli(main, argv + extra) + (out_dir,)
+    return out
+
+
+def test_aruco_capture_equals_jax(captures):
+    """Both captures keep the two board frames (the flat frame is skipped),
+    print the same line, and write images equal pixel for pixel and pose
+    files that read back within the pose solvers' gap (the port's
+    Levenberg-Marquardt runs to convergence; OpenCV's stops earlier:
+    measured 1.5e-5 mm and 1e-8 here)."""
+    import cv2
+
+    from linemod_tpu.utils.yamlcv import read_yamlcv as jax_read
+
+    (rc_j, out_j, _, dir_j), (rc_p, out_p, _, dir_p) = captures["jax"], captures["port"]
+    assert rc_p == rc_j == 0
+    assert out_j == f"captured 2 frames to {dir_j}\n" and out_p == f"captured 2 frames to {dir_p}\n"
+    assert sorted(os.listdir(dir_p)) == sorted(os.listdir(dir_j)) == sorted(
+        f"{k}{i}.{e}" for i in range(2) for k, e in (("img", "png"), ("depth", "png"), ("pose", "yml")))
+    for i in range(2):
+        for name, flag in ((f"img{i}.png", cv2.IMREAD_UNCHANGED), (f"depth{i}.png", cv2.IMREAD_UNCHANGED)):
+            want, got = cv2.imread(os.path.join(dir_j, name), flag), cv2.imread(os.path.join(dir_p, name), flag)
+            assert got.dtype == want.dtype and np.array_equal(got, want), name
+        want, got = jax_read(os.path.join(dir_j, f"pose{i}.yml")), jax_read(os.path.join(dir_p, f"pose{i}.yml"))
+        assert list(got) == list(want) == ["rotMat", "position"]
+        np.testing.assert_allclose(got["rotMat"], want["rotMat"], rtol=0, atol=1e-7)
+        np.testing.assert_allclose(got["position"], want["position"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["benchmark/pose0.yml", "models/lagergehaeuse.yml", "linemod_settings.yml",
+                                  "captured"])
+def test_read_yamlcv_equals_jax(captures, name):
+    """read_yamlcv returns JAX's dict: the same keys in the same order,
+    scalars of the same type and value, matrices as equal float64 arrays."""
+    from linemod_tpu.utils.yamlcv import read_yamlcv as jax_read
+
+    from linemod_tpu_torch.utils.yamlcv import read_yamlcv
+
+    path = os.path.join(captures["port"][3], "pose0.yml") if name == "captured" else os.path.join(EXAMPLE, name)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return isinstance(b, dict) and list(a) == list(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return isinstance(b, list) and len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+        return type(a) is type(b) and a == b
+
+    want = jax_read(path)
+    assert want and same(read_yamlcv(path), want)

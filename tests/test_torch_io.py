@@ -204,11 +204,11 @@ def test_png_paeth_frame_decodes_fast(tmp_path):
 
 @pytest.mark.parametrize("path", YAML_FILES, ids=os.path.basename)
 def test_cvyaml_equals_yamlcv(path):
-    from linemod_tpu.utils.yamlcv import read_yamlcv
-    from linemod_tpu_torch.utils.cvyaml import read_cvyaml
+    from linemod_tpu.utils.yamlcv import read_yamlcv as jax_read
+    from linemod_tpu_torch.utils.yamlcv import read_yamlcv
 
-    got = read_cvyaml(path)
-    want = read_yamlcv(path)
+    got = read_yamlcv(path)
+    want = jax_read(path)
     assert got.keys() == want.keys()
     for key in want:
         assert type(got[key]) is type(want[key]), key

@@ -57,6 +57,9 @@ def test_port_imports_without_jax_cv2_yaml():
     assert sharding <= set(result["modules"]), sharding - set(result["modules"])
     ingest = {"linemod_tpu_torch." + m for m in ("utils.native", "utils.hostlib", "ops.detect_core")}
     assert ingest <= set(result["modules"]), ingest - set(result["modules"])
+    capture = {"linemod_tpu_torch." + m for m in (
+        "ops.aruco", "pipeline.aruco_capture", "utils.jpeg", "utils.pnp", "utils.yamlcv")}
+    assert capture <= set(result["modules"]), capture - set(result["modules"])
     assert result["loaded"] == []
 
 
