@@ -159,8 +159,8 @@ Drives the port's paths on the card and checks them, in phases:
    whole `detect` by route, and `cli detect` over a 20-frame PNG sequence
    with the prefetching loader and with FileSequenceSource, in turns;
 13. JPEG frames and ArUco ground-truth capture (`jpeg_aruco_phase`):
-   every golden JPEG (tests/goldens/jpeg/) decodes to cv2's digest and the
-   progressive one raises; `cli evaluate --gt linemod` and `cli detect`
+   every golden JPEG (tests/goldens/jpeg/), the progressive one too,
+   decodes to cv2's digest; `cli evaluate --gt linemod` and `cli detect`
    over a JPEG LINEMOD-layout sequence (its .dpt depths and tra/rot written
    here) print JAX's lines (tests/goldens/jpeg_ref.npz), 2.1 and 2.2
    launching once a frame, each launch held against its plain twin; the
@@ -171,14 +171,26 @@ Drives the port's paths on the card and checks them, in phases:
    writes JAX's files. Times: host decode of the 640x480 frame as JPEG
    4:2:0 / 4:4:4 and as PNG, `cli evaluate` ms a frame over JPEG and PNG,
    `detect_board_pose` at 1920x1080 by stage, the capture's ms a frame;
-14. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+14. the other frame formats (`imread_phase`): every golden of
+   tests/goldens/imread/ (progressive JPEG, TIFF, PNM, BMP, a color PNG
+   read as depth) decodes to cv2's digest in both modes and each refused
+   kind raises naming the file and the kind (tests/goldens/imread_ref.npz);
+   `cli detect` and `cli evaluate --gt yml` over the fixture as progressive
+   JPEG with LZW and Deflate TIFF depths, and as PPM and BMP (written here
+   from the PNG's pixels) with 16-bit PGM depths, print JAX's lines, 2.1
+   and 2.2 launching once a frame, each launch held against its plain twin.
+   Times: host decode of the 640x480 frame in each format beside PNG and
+   baseline JPEG, `cli evaluate` ms a frame over progressive and baseline
+   JPEG;
+15. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-15. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+16. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
    two-class shapes' numbers under `multi`, the launches of detection
    with the card's generated color bank under `generated`, phase 10's
    launches a frame of each path under `cli_launches_a_frame`, phase 13's
-   JPEG paths' under `jpeg_launches_a_frame`, phase 11's launches a frame a rank and max|kernel - plain| over the ranks
+   JPEG paths' under `jpeg_launches_a_frame`, phase 14's under
+   `imread_launches_a_frame`, phase 11's launches a frame a rank and max|kernel - plain| over the ranks
    under `sharded`, by world and path, and phase 12's launches a frame and
    max|kernel - plain| under `quant`, `delta` and `cut_opt_ins`, by path),
    after a line of the seconds from the start to each phase, then the
@@ -196,6 +208,7 @@ import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -217,6 +230,8 @@ PAIR_REF = os.path.join(REPO, "tests", "goldens", "refpair_ref.npz")
 REG_REF = os.path.join(REPO, "tests", "goldens", "registration_ref.npz")
 JPEG_DIR = os.path.join(REPO, "tests", "goldens", "jpeg")
 JPEG_REF = os.path.join(REPO, "tests", "goldens", "jpeg_ref.npz")
+IMREAD_DIR = os.path.join(REPO, "tests", "goldens", "imread")
+IMREAD_REF = os.path.join(REPO, "tests", "goldens", "imread_ref.npz")
 ARUCO_REF = os.path.join(REPO, "tests", "goldens", "aruco_ref.npz")
 # the port's board pose against JAX's (one cv2.solvePnP call, which stops
 # with steps left) on the clean frames, and against solvePnP rerun from its
@@ -1580,22 +1595,15 @@ def jpeg_aruco_phase(dev, card: str) -> dict:
     from linemod_tpu_torch.utils.yamlcv import read_yamlcv
 
     jref, aref = np.load(JPEG_REF), np.load(ARUCO_REF)
-    # (a) every golden JPEG decodes to cv2's digest; the progressive one raises
+    # (a) every golden JPEG, the progressive one too, decodes to cv2's digest
     decoded = 0
     for name, color_sha, gray_sha in zip(jref["names"], jref["color_sha256"], jref["gray_sha256"]):
         path = os.path.join(JPEG_DIR, str(name))
-        if str(name).endswith("progressive.jpg"):
-            try:
-                read_jpeg(path, "color")
-                check(False, f"{name}: a progressive JPEG decoded")
-            except ValueError as e:
-                check(str(name) in str(e) and "progressive (SOF2)" in str(e), f"{name}: {e}")
-            continue
         check(hashlib.sha256(read_jpeg(path, "color").tobytes()).hexdigest() == color_sha, f"{name}: color != cv2")
         check(hashlib.sha256(read_jpeg(path, "anydepth").tobytes()).hexdigest() == gray_sha, f"{name}: gray != cv2")
         decoded += 1
-    phase(13, f"JPEG decode: {decoded} golden files equal cv2's decode (color and gray) bit for bit; "
-              "the progressive file raises naming the file and SOF2")
+    phase(13, f"JPEG decode: {decoded} golden files (one progressive) equal cv2's decode (color and gray) bit "
+              "for bit")
 
     # (b) evaluate --gt linemod and detect over the JPEG LINEMOD-layout sequence
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -1740,6 +1748,164 @@ def jpeg_aruco_phase(dev, card: str) -> dict:
                   + f"; gray+threshold's device ops by CUDA events, median {statistics.median(device_ms):.3f} ms; "
                     f"capture {capture_ms:.1f} ms a frame over {len(source)} frames (detection, PNG and YAML "
                     f"writes) ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def write_ppm(path: str, bgr: np.ndarray) -> None:
+    """A binary PPM (P6) of BGR uint8 [H, W, 3]."""
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (bgr.shape[1], bgr.shape[0]) + np.ascontiguousarray(bgr[:, :, ::-1]).tobytes())
+
+
+def write_pgm16(path: str, gray: np.ndarray) -> None:
+    """A binary 16-bit PGM (P5, big-endian samples) of uint16 [H, W]."""
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n65535\n" % (gray.shape[1], gray.shape[0]) + gray.astype(">u2").tobytes())
+
+
+def write_bmp24(path: str, bgr: np.ndarray) -> None:
+    """A 24-bit bottom-up BMP (BITMAPINFOHEADER, BI_RGB) of BGR uint8 [H, W, 3]."""
+    h, w = bgr.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = bgr[::-1].reshape(h, -1)
+    header = struct.pack("<2sIHHIIiiHHIIiiII", b"BM", 54 + rows.size, 0, 0, 54, 40, w, h, 1, 24, 0, rows.size,
+                         2835, 2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
+def imread_phase(dev, card: str) -> dict:
+    """Phase 14: the other frame formats (progressive JPEG, TIFF, PNM, BMP)
+    on the card's host, held to tests/goldens/imread_ref.npz (cv2 and JAX on
+    the CPU), and `cli detect` / `cli evaluate` over them on the card.
+    Returns the new CLI paths' 2.1 and 2.2 launches a frame."""
+    import hashlib
+    import re
+    import shutil
+    import tempfile
+
+    from linemod_tpu_torch.pipeline.sensors import read_image
+    from linemod_tpu_torch.utils.png import read_png, write_png
+
+    ref = np.load(IMREAD_REF)
+    # (a) every golden decodes to cv2's digest (none: cv2 gives nothing and
+    # the reader raises); every refused file raises naming itself and its kind
+    decoded = refused = 0
+    for name, color_sha, gray_sha in zip(ref["names"], ref["color_sha256"], ref["gray_sha256"]):
+        path = os.path.join(IMREAD_DIR, str(name))
+        for mode, sha in (("color", str(color_sha)), ("anydepth", str(gray_sha))):
+            try:
+                got = hashlib.sha256(read_image(path, mode).tobytes()).hexdigest()
+            except ValueError as e:
+                got = f"raised: {e}"
+            check(got == sha or (not sha and got.startswith(f"raised: {path}")), f"{name} {mode}: {got} != cv2's")
+            decoded += bool(sha)
+    for name, words in zip(ref["refused_names"], ref["refused_words"]):
+        path = os.path.join(IMREAD_DIR, "refused", str(name))
+        try:
+            read_image(path, "color")
+            check(False, f"{name}: a refused file decoded")
+        except ValueError as e:
+            check(re.search(re.escape(path) + ".*(" + str(words) + ")", str(e)) is not None, f"{name}: {e}")
+        refused += 1
+    phase(14, f"{decoded} decodes of {len(ref['names'])} golden files (progressive JPEG, TIFF, PNM, BMP, color "
+              f"PNG as depth; color and gray) equal cv2's bit for bit, the rest raise where cv2 gives nothing; "
+              f"{refused} refused kinds raise naming the file and the kind")
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="imread-", dir=os.path.join(REPO, "build"))
+    launches = {}
+    try:
+        color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
+        depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
+        pose = os.path.join(EXAMPLE, "benchmark", "pose0.yml")
+        prog_jpg = os.path.join(JPEG_DIR, "fixture_progressive.jpg")
+        # (b) the sequences of tests/test_torch_imread.sequences
+        seqs = {"progressive": (os.path.join(tmp, "progressive"), ".jpg", ".tif"),
+                "lossless": (os.path.join(tmp, "lossless"), ".img", ".img")}
+        for folder, _, _ in seqs.values():
+            os.makedirs(folder)
+        for i, depth_name in enumerate(("fixture_depth_lzw.tif", "fixture_depth_deflate.tif")):
+            shutil.copy(prog_jpg, os.path.join(tmp, "progressive", f"color{i}.jpg"))
+            shutil.copy(os.path.join(IMREAD_DIR, depth_name), os.path.join(tmp, "progressive", f"depth{i}.tif"))
+        lossless = os.path.join(tmp, "lossless")
+        write_ppm(os.path.join(lossless, "color0.img"), color)
+        write_bmp24(os.path.join(lossless, "color1.img"), color)
+        for i in range(2):
+            write_pgm16(os.path.join(lossless, f"depth{i}.img"), depth)
+            for folder, _, _ in seqs.values():
+                shutil.copy(pose, os.path.join(folder, f"pose{i}.yml"))
+        check(np.array_equal(read_image(os.path.join(lossless, "color1.img"), "color"), color)
+              and np.array_equal(read_image(os.path.join(lossless, "depth0.img"), "anydepth"), depth),
+              "the full-frame BMP / PGM do not read back as the fixture's pixels")
+
+        def argv(command, seq):
+            folder, color_ext, depth_ext = seq
+            return [command, "--model", "lagergehaeuse.ply", "--images", os.path.join(folder, f"color%d{color_ext}"),
+                    "--depths", os.path.join(folder, f"depth%d{depth_ext}"), "--device", str(dev)] + (
+                        ["--gt", "yml"] if command == "evaluate" else [])
+
+        for seq_name, seq in seqs.items():
+            for command in ("detect", "evaluate"):
+                out, n, err = kept_launches(lambda: run_cli(argv(command, seq), EXAMPLE))
+                text = re.sub(r"mean \d+\.\d ms \(\d+\.\d+ fps\)", "mean <t> ms (<f> fps)",
+                              re.sub(r"in \d+\.\d ms", "in <t> ms", out))
+                check(text.splitlines() == [str(v) for v in ref[f"{seq_name}_{command}_lines"]],
+                      f"cli {command} over the {seq_name} sequence != JAX:\n{out}")
+                check(n["coarse_scores"] == n["fine_scores"] == 2 and n["coarse_max"] == 0,
+                      f"cli {command} over the {seq_name} sequence launches {n}")
+                check(err["coarse_scores"] == err["fine_scores"] == 0, f"cli {command} {seq_name}: kernel != plain {err}")
+                path = f"{seq_name} {command}"
+                launches[path] = {"coarse": n["coarse_scores"] / 2, "fine": n["fine_scores"] / 2}
+                phase(14, f"cli {command} over the {seq_name} sequence (2 frames: "
+                          + ("progressive JPEG with LZW+predictor and Deflate TIFF depths" if seq_name == "progressive"
+                             else "PPM and BMP with 16-bit PGM depths") + "): JAX's lines; launches a frame 2.1 "
+                          f"{launches[path]['coarse']:g}, 2.2 {launches[path]['fine']:g}, max|kernel - plain| "
+                          f"{max(err.values())}")
+
+        # (c) host decode of the 640x480 fixture frame in each format
+        frames = {"depth.tif (LZW+predictor)": os.path.join(IMREAD_DIR, "fixture_depth_lzw.tif"),
+                  "depth.tif (Deflate)": os.path.join(IMREAD_DIR, "fixture_depth_deflate.tif"),
+                  "depth.pgm (16-bit)": os.path.join(lossless, "depth0.img"),
+                  "color.ppm": os.path.join(lossless, "color0.img"),
+                  "color.bmp (24-bit)": os.path.join(lossless, "color1.img")}
+        decode = {"color PNG": host_ms(lambda: read_image(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")),
+                  "depth PNG": host_ms(lambda: read_image(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")),
+                  "baseline JPEG 4:2:0 q95": host_ms(lambda: read_image(os.path.join(JPEG_DIR, "fixture_420.jpg"),
+                                                                        "color")),
+                  "progressive JPEG q80": host_ms(lambda: read_image(prog_jpg, "color"))}
+        for label, path in frames.items():
+            decode[label] = host_ms(lambda path=path, label=label: read_image(path, "anydepth" if "depth" in label
+                                                                              else "color"))
+        phase(14, "host decode of the 640x480 fixture frame on the card's host, median (min) ms of 20: " + ", ".join(
+            f"{k} {v[0]:.3f} ({v[1]:.3f})" for k, v in decode.items()) + f" ({card})")
+
+        # (d) cli evaluate's ms a frame over 3 progressive JPEG frames and 3
+        # baseline ones (PNG depths), the 3-frame command less the 1-frame
+        # command, in turns
+        timed = {}
+        for label, src in (("baseline", os.path.join(JPEG_DIR, "fixture_420.jpg")), ("progressive", prog_jpg)):
+            folder = os.path.join(tmp, f"timed_{label}")
+            os.makedirs(folder)
+            for i in range(3):
+                shutil.copy(src, os.path.join(folder, f"color{i}.jpg"))
+                write_png(os.path.join(folder, f"depth{i}.png"), depth)
+                shutil.copy(pose, os.path.join(folder, f"pose{i}.yml"))
+            timed[label] = (folder, ".jpg", ".png")
+        eval_ms = {"baseline": [], "progressive": []}
+        for label in ("baseline", "progressive", "progressive", "baseline"):
+            runs = []
+            for max_frames in ("1", "0"):
+                t0 = time.perf_counter()
+                run_cli(argv("evaluate", timed[label]) + ["--max-frames", max_frames], EXAMPLE)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            eval_ms[label].append((runs[1] - runs[0]) / 2)
+        phase(14, "cli evaluate ms a frame (3 frames less 1, in turns baseline, progressive, progressive, "
+                  f"baseline; 640x480 JPEG color, PNG depth): progressive {[round(v, 1) for v in eval_ms['progressive']]}, "
+                  f"baseline {[round(v, 1) for v in eval_ms['baseline']]} ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -2398,7 +2564,10 @@ def main() -> int:
     # -- phase 13: JPEG frames and the ArUco ground-truth capture
     jpeg_launches = jpeg_aruco_phase(dev, card)
 
-    # -- phase 14: the probes
+    # -- phase 14: the other frame formats
+    imread_launches = imread_phase(dev, card)
+
+    # -- phase 15: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -2431,12 +2600,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(14, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(15, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 15: results
+    # -- phase 16: results
     def sharded_launches(i):
         """Phase 11's launches a frame a rank of kernel i (2.1, 2.2, 2.3)
         and its max|kernel - plain| over every rank's launches, by world and
@@ -2476,6 +2645,7 @@ def main() -> int:
          "multi": multi["coarse"], "generated": {"launches": gen_launches["coarse"]},
          "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()},
          "jpeg_launches_a_frame": {path: n_["coarse"] for path, n_ in jpeg_launches.items()},
+         "imread_launches_a_frame": {path: n_["coarse"] for path, n_ in imread_launches.items()},
          "sharded": sharded_launches(0), **ingest_launches("coarse_scores")},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
@@ -2483,6 +2653,7 @@ def main() -> int:
          "multi": multi["fine"], "generated": {"launches": gen_launches["fine"]},
          "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()},
          "jpeg_launches_a_frame": {path: n_["fine"] for path, n_ in jpeg_launches.items()},
+         "imread_launches_a_frame": {path: n_["fine"] for path, n_ in imread_launches.items()},
          "sharded": sharded_launches(1), **ingest_launches("fine_scores")},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
@@ -2498,7 +2669,7 @@ def main() -> int:
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
               *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
-    phase(15, "seconds from the start to each phase's first line: "
+    phase(16, "seconds from the start to each phase's first line: "
               + ", ".join(f"{n} {t:.1f}" for n, t in sorted(PHASE_AT.items())))
     print(card)
     print(json.dumps({"kernels": kernels}))

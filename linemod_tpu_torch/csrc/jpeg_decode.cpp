@@ -1,6 +1,7 @@
-// Baseline and extended sequential Huffman JPEG decoding (SOF0/SOF1, 8-bit,
-// 1 or 3 components, any integral sampling factors, restart intervals),
-// the host half of the port's JPEG reader (linemod_tpu_torch/utils/jpeg.py).
+// Baseline, extended sequential and progressive Huffman JPEG decoding
+// (SOF0/SOF1/SOF2, 8-bit, 1 or 3 components, any integral sampling factors,
+// restart intervals), the host half of the port's JPEG reader
+// (linemod_tpu_torch/utils/jpeg.py).
 // Its output equals what OpenCV's imread gets from its bundled
 // libjpeg-turbo at the library's defaults, bit for bit:
 //   - the ISLOW integer IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2) and
@@ -11,11 +12,22 @@
 //     two samples wide or less; the context row above the first row and
 //     below the last is that row itself (jdmainct.c);
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16);
-//   - gray output of a YCbCr file is its Y plane.
-// Huffman decoding is sequential, so it stays on the host. Progressive,
-// arithmetic-coded, lossless, hierarchical and 12-bit files, CMYK and
-// RGB-coded (Adobe transform 0) files are refused with a message, and so is
-// a scan whose data ends before its last MCU: no call returns an image that
+//   - gray output of a YCbCr file is its Y plane;
+//   - progressive scans as jdphuff.c decodes them (DC first and refine, AC
+//     first with end-of-band runs, AC refine with its correction bits; the
+//     run is reset at each restart marker), their spectral selection and
+//     successive approximation checked as jdphuff.c checks them (a scan
+//     that breaks the rules, which libjpeg only warns of, is refused);
+//   - each component dequantized with the table in force at its first scan
+//     (jdinput.c latch_quant_tables), so a DQT between scans changes only
+//     the components that have not been scanned yet.
+// A progressive file whose scans leave bits of one of the first ten AC
+// coefficients (zigzag 1-9) unsent is refused: libjpeg-turbo smooths such
+// blocks (jdcoefct.c decompress_smooth_data), which this does not.
+// Huffman decoding is sequential, so it stays on the host. Arithmetic-
+// coded, lossless, hierarchical and 12-bit files, CMYK and RGB-coded
+// (Adobe transform 0) files are refused with a message, and so is a scan
+// whose data ends before its last MCU: no call returns an image that
 // differs from OpenCV's.
 //
 // Built with g++ -O3 -shared -fPIC at first use and bound with ctypes.
@@ -54,6 +66,16 @@ struct Component {
   int bw, bh;              // blocks allocated (whole MCUs)
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
   int pred = 0;
+  bool latched = false;  // its quantization table, copied at its first scan
+  uint16_t q[64] = {};
+  int coef_bits[64];  // progressive: the last successive-approximation bit sent, -1 for none
+};
+
+// One scan's spectral selection and successive approximation.
+struct Scan {
+  int ss = 0, se = 63, ah = 0, al = 0;
+  bool progressive = false;
+  int eobrun = 0;
 };
 
 struct Frame {
@@ -66,6 +88,7 @@ struct Frame {
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   bool have_frame = false;
+  bool progressive = false;
 };
 
 uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>(p[0] << 8 | p[1]); }
@@ -173,6 +196,97 @@ void decode_block(BitReader& br, Component& c, const Frame& f, int16_t* blk) {
   }
 }
 
+// jdphuff.c decode_mcu_DC_first / _DC_refine
+void decode_dc_first(BitReader& br, Component& c, const Frame& f, int16_t* blk, int al) {
+  int s = decode_symbol(br, f.dc[c.td]);
+  if (s > 15) throw Error{"corrupt Huffman data (DC magnitude)"};
+  c.pred += s ? extend(br.get(s), s) : 0;
+  blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.pred) << al);
+}
+
+void decode_dc_refine(BitReader& br, int16_t* blk, int al) {
+  if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+}
+
+// jdphuff.c decode_mcu_AC_first: one block's band, or one block of an
+// end-of-band run
+void decode_ac_first(BitReader& br, const Component& c, const Frame& f, int16_t* blk, Scan& sc) {
+  if (sc.eobrun > 0) {
+    --sc.eobrun;
+    return;
+  }
+  const Huffman& t = f.ac[c.ta];
+  for (int k = sc.ss; k <= sc.se; ++k) {
+    int rs = decode_symbol(br, t);
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      if (k > sc.se) throw Error{"corrupt Huffman data (coefficient index)"};
+      blk[kZigzag[k]] = static_cast<int16_t>(static_cast<unsigned>(extend(br.get(s), s)) << sc.al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      sc.eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+      break;
+    }
+  }
+}
+
+// A correction bit for an already nonzero coefficient: 1 raises its
+// magnitude by the bit being refined.
+inline void correct(BitReader& br, int16_t& coef, int p1) {
+  if (br.get(1) && (coef & p1) == 0) coef = static_cast<int16_t>(coef >= 0 ? coef + p1 : coef - p1);
+}
+
+// jdphuff.c decode_mcu_AC_refine
+void decode_ac_refine(BitReader& br, const Component& c, const Frame& f, int16_t* blk, Scan& sc) {
+  const int p1 = 1 << sc.al;
+  int k = sc.ss;
+  if (sc.eobrun == 0) {
+    const Huffman& t = f.ac[c.ta];
+    for (; k <= sc.se; ++k) {
+      int rs = decode_symbol(br, t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        if (s != 1) throw Error{"corrupt Huffman data (refinement of more than one bit)"};
+        s = br.get(1) ? p1 : -p1;
+      } else if (r != 15) {
+        sc.eobrun = (1 << r) + (r ? br.get(r) : 0);
+        break;
+      }
+      // pass the nonzero coefficients (correcting each) and r zero ones
+      do {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef != 0) {
+          correct(br, coef, p1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= sc.se);
+      if (s) {
+        if (k > sc.se) throw Error{"corrupt Huffman data (coefficient index)"};
+        blk[kZigzag[k]] = static_cast<int16_t>(s);
+      }
+    }
+  }
+  if (sc.eobrun > 0) {  // the rest of the band in an end-of-band run
+    for (; k <= sc.se; ++k) {
+      int16_t& coef = blk[kZigzag[k]];
+      if (coef != 0) correct(br, coef, p1);
+    }
+    --sc.eobrun;
+  }
+}
+
+void decode_unit(BitReader& br, Component& c, const Frame& f, int16_t* blk, Scan& sc) {
+  if (!sc.progressive) decode_block(br, c, f, blk);
+  else if (sc.ss == 0 && sc.ah == 0) decode_dc_first(br, c, f, blk, sc.al);
+  else if (sc.ss == 0) decode_dc_refine(br, blk, sc.al);
+  else if (sc.ah == 0) decode_ac_first(br, c, f, blk, sc);
+  else decode_ac_refine(br, c, f, blk, sc);
+}
+
 // The entropy-coded segments of a scan starting at data[pos], split at its
 // RSTn markers and unstuffed. Returns the position of the marker that ends
 // the scan (or n).
@@ -202,7 +316,7 @@ size_t scan_segments(const uint8_t* data, size_t n, size_t pos, std::vector<std:
   return n;
 }
 
-void decode_scan(Frame& f, const uint8_t* data, size_t n, size_t& pos, int ns, Component** sc) {
+void decode_scan(Frame& f, const uint8_t* data, size_t n, size_t& pos, int ns, Component** sc, Scan& scan) {
   std::vector<std::vector<uint8_t>> segs;
   pos = scan_segments(data, n, pos, segs);
   int units_x, units_y;
@@ -221,6 +335,7 @@ void decode_scan(Frame& f, const uint8_t* data, size_t n, size_t& pos, int ns, C
     if (seg >= segs.size()) throw Error{"premature end of data (scan truncated)"};
     BitReader br{segs[seg].data(), segs[seg].size()};
     for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    scan.eobrun = 0;
     long stop = std::min(total, done + per);
     for (; done < stop; ++done) {
       int ux = static_cast<int>(done % units_x), uy = static_cast<int>(done / units_x);
@@ -230,7 +345,7 @@ void decode_scan(Frame& f, const uint8_t* data, size_t n, size_t& pos, int ns, C
         for (int y = 0; y < bh; ++y)
           for (int x = 0; x < bw; ++x) {
             int bx = ux * bw + x, by = uy * bh + y;
-            decode_block(br, c, f, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64]);
+            decode_unit(br, c, f, &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], scan);
           }
       }
       if (br.past_end()) throw Error{"premature end of data (scan truncated)"};
@@ -510,6 +625,68 @@ void read_frame_header(Frame& f, const uint8_t* p, int len) {
   f.have_frame = true;
 }
 
+// A scan header's checks (jdphuff.c start_pass_phuff_decoder, jdhuff.c):
+// the tables it needs are defined, its spectral selection and successive
+// approximation are legal and continue each component's progression;
+// then each component's quantization table is latched at its first scan.
+void check_scan(Frame& f, const Scan& sc, int ns, Component** comps) {
+  const bool dc_band = sc.ss == 0;
+  if (!sc.progressive) {
+    if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0)
+      throw Error{"sequential scan with spectral selection or successive approximation"};
+  } else {
+    bool bad = dc_band ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || ns != 1);
+    if ((sc.ah != 0 && sc.al != sc.ah - 1) || sc.al > 13) bad = true;
+    if (bad)
+      throw Error{"invalid progressive scan (Ss " + std::to_string(sc.ss) + ", Se " + std::to_string(sc.se) +
+                  ", Ah " + std::to_string(sc.ah) + ", Al " + std::to_string(sc.al) + ")"};
+  }
+  for (int i = 0; i < ns; ++i) {
+    Component& c = *comps[i];
+    bool needs_dc = !sc.progressive || (dc_band && sc.ah == 0), needs_ac = !sc.progressive || !dc_band;
+    if (c.td > 3 || c.ta > 3 || (needs_dc && !f.dc[c.td].defined) || (needs_ac && !f.ac[c.ta].defined))
+      throw Error{"scan uses an undefined Huffman table"};
+    if (sc.progressive) {
+      if (!dc_band && c.coef_bits[0] < 0)
+        throw Error{"progressive scan refines AC coefficients before the DC (a bogus progression)"};
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        if (sc.ah != std::max(c.coef_bits[k], 0))
+          throw Error{"progressive scan out of order (a bogus progression)"};
+        c.coef_bits[k] = sc.al;
+      }
+    }
+    if (!c.latched) {
+      if (!f.qt_defined[c.tq]) throw Error{"component uses an undefined quantization table"};
+      std::memcpy(c.q, f.qt[c.tq], sizeof(c.q));
+      c.latched = true;
+    }
+  }
+  if (ns > 1) {
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += comps[i]->h * comps[i]->v;
+    if (blocks > 10) throw Error{"too many blocks in an MCU"};
+  }
+}
+
+// jdcoefct.c smoothing_ok: whether libjpeg-turbo would smooth the blocks
+// of this progressive image (every component scanned with its DC known
+// and nonzero quantizers at the DC and the first nine AC positions, and
+// some of zigzag 1-9 not fully refined in some component).
+bool would_smooth(const Frame& f) {
+  static const int kPositions[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (int i = 0; i < f.ncomp; ++i) {
+    const Component& c = f.comp[i];
+    if (!c.latched) return false;
+    for (int pos : kPositions)
+      if (c.q[pos] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
 // Parse from SOI; stops after the frame header when `decode` is false.
 void run(Frame& f, const uint8_t* data, size_t n, bool decode) {
   if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) throw Error{"not a JPEG file (no SOI marker)"};
@@ -525,6 +702,9 @@ void run(Frame& f, const uint8_t* data, size_t n, bool decode) {
     int m = data[pos++];
     if (m == 0xD9) {
       if (!any_scan) throw Error{"no image data before EOI"};
+      if (f.progressive && would_smooth(f))
+        throw Error{"progressive JPEG whose scans leave low AC coefficients unrefined (libjpeg-turbo's block "
+                    "smoothing is not decoded)"};
       return;
     }
     if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
@@ -534,17 +714,21 @@ void run(Frame& f, const uint8_t* data, size_t n, bool decode) {
     const uint8_t* p = data + pos + 2;
     int plen = len - 2;
     pos += len;
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       read_frame_header(f, p, plen);
+      f.progressive = m == 0xC2;
       if (f.adobe && f.adobe_transform == 0 && f.ncomp == 3)
         throw Error{"RGB-coded JPEG (Adobe transform 0) is not decoded"};
       if (!f.jfif && !f.adobe && f.ncomp == 3 && f.comp[0].id == 'R' && f.comp[1].id == 'G' && f.comp[2].id == 'B')
         throw Error{"RGB-coded JPEG is not decoded"};
       if (!decode) return;
-      for (int i = 0; i < f.ncomp; ++i)
+      for (int i = 0; i < f.ncomp; ++i) {
         f.comp[i].coef.assign(static_cast<size_t>(f.comp[i].bw) * f.comp[i].bh * 64, 0);
+        std::fill(f.comp[i].coef_bits, f.comp[i].coef_bits + 64, -1);
+      }
     } else if ((m >= 0xC2 && m <= 0xCF) && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-      throw Error{std::string(frame_name(m)) + " JPEG is not decoded (baseline and extended sequential Huffman only)"};
+      throw Error{std::string(frame_name(m)) + " JPEG is not decoded (baseline, extended sequential and "
+                  "progressive Huffman only)"};
     } else if (m == 0xC4) {  // DHT
       int k = 0;
       while (k < plen) {
@@ -590,18 +774,15 @@ void run(Frame& f, const uint8_t* data, size_t n, bool decode) {
         if (!sc[i]) throw Error{"scan names an unknown component"};
         sc[i]->td = t >> 4;
         sc[i]->ta = t & 15;
-        if (sc[i]->td > 3 || sc[i]->ta > 3 || !f.dc[sc[i]->td].defined || !f.ac[sc[i]->ta].defined)
-          throw Error{"scan uses an undefined Huffman table"};
-        if (!f.qt_defined[sc[i]->tq]) throw Error{"component uses an undefined quantization table"};
       }
-      int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ahal = p[3 + 2 * ns];
-      if (ss != 0 || se != 63 || ahal != 0) throw Error{"scan with spectral selection or successive approximation"};
-      if (ns > 1) {
-        int blocks = 0;
-        for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
-        if (blocks > 10) throw Error{"too many blocks in an MCU"};
-      }
-      decode_scan(f, data, n, pos, ns, sc);
+      Scan scan;
+      scan.progressive = f.progressive;
+      scan.ss = p[1 + 2 * ns];
+      scan.se = p[2 + 2 * ns];
+      scan.ah = p[3 + 2 * ns] >> 4;
+      scan.al = p[3 + 2 * ns] & 15;
+      check_scan(f, scan, ns, sc);
+      decode_scan(f, data, n, pos, ns, sc, scan);
       any_scan = true;
     }
   }
@@ -646,7 +827,7 @@ int jpeg_decode(const uint8_t* data, long n, int gray, uint8_t* out, char* err, 
     std::vector<uint8_t> planes[3];
     int needed = (gray || f.ncomp == 1) ? 1 : 3;
     for (int i = 0; i < needed; ++i) {
-      std::vector<uint8_t> plane = component_plane(f.comp[i], f.qt[f.comp[i].tq]);
+      std::vector<uint8_t> plane = component_plane(f.comp[i], f.comp[i].q);
       planes[i].resize(px);
       upsample(f.comp[i], plane, f, planes[i].data());
     }

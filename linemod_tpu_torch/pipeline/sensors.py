@@ -3,12 +3,16 @@ replaces the reference's Kinect2 wrapper, src/Kinect2.cpp).
 
 Sensors are iterables yielding (color BGR uint8 [H, W, 3], depth mm uint16
 [H, W]) pairs. `FileSequenceSource` replays recorded sequences (the
-detector's default input, detector.cpp:12-25): color frames are PNG or
-JPEG (the public LINEMOD layout's `color%d.jpg`), depth frames PNG or the
-LINEMOD dataset's `.dpt`. A file is decoded by its leading bytes, as
-`cv2.imread` picks its codec: PNG by `utils/png`, JPEG by `utils/jpeg`;
-any other format raises a ValueError that names the file, and no frame is
-skipped.
+detector's default input, detector.cpp:12-25): frames are read as the
+reference reads them with `cv2.imread` (color with IMREAD_COLOR, depth with
+IMREAD_ANYDEPTH, or the LINEMOD dataset's `.dpt`). A file is decoded by its
+leading bytes, as `cv2.imread` picks its codec: PNG by `utils/png`, JPEG
+(baseline, extended and progressive; the public LINEMOD layout's
+`color%d.jpg`) by `utils/jpeg`, TIFF by `utils/tiff`, BMP by `utils/bmp`,
+PNM and PAM by `utils/pnm`. A format cv2 reads and the port does not
+(WebP, JPEG 2000, AVIF, GIF, Radiance HDR, Sun raster, PFM, OpenEXR), and
+any other file, raises a ValueError that names the file and the format;
+no frame is skipped.
 `Kinect2Source` keeps the reference's frame math (`from_raw_frames`); its
 live device needs libfreenect2 and USB, which the port does not bind.
 """
@@ -19,10 +23,29 @@ import os
 
 import numpy as np
 
+from ..utils import bmp, pnm, tiff
 from ..utils.io import load_depth_linemod_dataset
 from ..utils.jpeg import SOI, read_jpeg
 from ..utils.png import _SIGNATURE as PNG_SIGNATURE
 from ..utils.png import read_png
+
+# formats cv2.imread reads that the port refuses, by their leading bytes
+# (offset, bytes): WebP and AVIF by their RIFF / ISO-BMFF brand
+_REFUSED = (
+    ("WebP", ((0, b"RIFF"), (8, b"WEBP"))),
+    ("JPEG 2000", ((0, b"\xff\x4f\xff\x51"),)),
+    ("JPEG 2000", ((0, b"\x00\x00\x00\x0cjP  \r\n\x87\n"),)),
+    ("AVIF", ((4, b"ftypavif"),)),
+    ("AVIF", ((4, b"ftypavis"),)),
+    ("GIF", ((0, b"GIF87a"),)),
+    ("GIF", ((0, b"GIF89a"),)),
+    ("Radiance HDR", ((0, b"#?RADIANCE"),)),
+    ("Radiance HDR", ((0, b"#?RGBE"),)),
+    ("Sun raster", ((0, b"\x59\xa6\x6a\x95"),)),
+    ("PFM", ((0, b"PF"),)),
+    ("PFM", ((0, b"Pf"),)),
+    ("OpenEXR", ((0, b"\x76\x2f\x31\x01"),)),
+)
 
 
 def frame_paths(img_template: str, depth_template: str, i: int) -> tuple:
@@ -34,14 +57,24 @@ def frame_paths(img_template: str, depth_template: str, i: int) -> tuple:
 
 def read_image(path: str, mode: str) -> np.ndarray:
     """cv2.imread(path, IMREAD_COLOR) (mode "color") or IMREAD_ANYDEPTH
-    ("anydepth") of a PNG or JPEG file, told apart by their leading bytes."""
+    ("anydepth") of a PNG, JPEG, TIFF, BMP or PNM/PAM file, told apart by
+    their leading bytes."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head == PNG_SIGNATURE:
+        head = f.read(16)
+    if head[:8] == PNG_SIGNATURE:
         return read_png(path, mode)
     if head[:2] == SOI:
         return read_jpeg(path, mode)
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    if head[:4] in tiff.SIGNATURES + tiff.BIGTIFF_SIGNATURES:
+        return tiff.read_tiff(path, mode)
+    if head[:2] == bmp.SIGNATURE:
+        return bmp.read_bmp(path, mode)
+    if len(head) > 2 and head[0] == ord("P") and head[1] in b"1234567" and head[2] in b" \t\r\n":
+        return pnm.read_pnm(path, mode)
+    for name, marks in _REFUSED:
+        if all(head[at : at + len(mark)] == mark for at, mark in marks):
+            raise ValueError(f"{path}: a {name} file (cv2.imread reads it; the port does not decode {name})")
+    raise ValueError(f"{path}: not a PNG, JPEG, TIFF, BMP or PNM file")
 
 
 def load_frame(img_path: str, depth_path: str) -> tuple:

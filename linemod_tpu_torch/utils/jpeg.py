@@ -1,16 +1,18 @@
 """JPEG reading without OpenCV.
 
-`read_jpeg(path, mode)` returns what `cv2.imread` returns for a baseline or
-extended sequential Huffman JPEG, bit for bit: mode "color"
+`read_jpeg(path, mode)` returns what `cv2.imread` returns for a baseline,
+extended sequential or progressive Huffman JPEG, bit for bit: mode "color"
 (`cv2.IMREAD_COLOR`) gives BGR uint8 [H, W, 3] (a gray file replicated),
 mode "anydepth" (`cv2.IMREAD_ANYDEPTH`) gives uint8 [H, W] (the Y plane of
 a color file). The EXIF orientation is applied as OpenCV's imread applies
 it. The decode is host C++ (`csrc/jpeg_decode.cpp`, built by g++ at first
 use into `build/host/`, utils/hostlib): Huffman decoding is sequential, so
 it stays on the host as `cv2.imread` keeps it. A file the decoder does not
-take (progressive, arithmetic-coded, lossless, 12-bit, CMYK) or whose data
-ends early raises a ValueError that names the file and the reason; no call
-returns an image that differs from OpenCV's.
+take (arithmetic-coded, lossless, hierarchical, 12-bit, CMYK/YCCK or
+RGB-coded; a progressive file whose scans leave low AC coefficients
+unrefined, which libjpeg-turbo smooths; a scan that breaks the JPEG rules)
+or whose data ends early raises a ValueError that names the file and the
+reason; no call returns an image that differs from OpenCV's.
 """
 
 from __future__ import annotations

@@ -7,9 +7,12 @@ color frame (`mode="color"`, `cv2.IMREAD_COLOR`) becomes BGR uint8 with
 alpha and `tRNS` dropped, gray replicated, 16-bit samples cut to their high
 byte and 1/2/4-bit gray scaled to 0..255; a depth frame
 (`mode="anydepth"`, `cv2.IMREAD_ANYDEPTH`) is a gray image at its own
-depth, uint16 or uint8. The scanlines are unfiltered by the port's host
-C++ (`csrc/png_unfilter.cpp`, built with g++ at first use into `build/`
-and bound with ctypes); `_unfilter` is its plain numpy version, which the
+depth, uint16 or uint8; a color or palette file becomes libpng's gray
+(`png_set_rgb_to_gray` at OpenCV's 0.299 and 0.587, `libpng_gray`), and one
+whose gAMA, sRGB or iCCP chunk would make libpng gamma-correct that gray
+raises. The color rules are the other readers' (`utils/imconvert`). The
+scanlines are unfiltered by the port's host C++ (`csrc/png_unfilter.cpp`,
+built with g++ at first use into `build/` and bound with ctypes); `_unfilter` is its plain numpy version, which the
 tests hold it to. `encode_png` writes any format with one chosen filter
 on every row; `write_png` writes 8-bit RGB, 8-bit gray and 16-bit gray
 with filter 0. Color is in **BGR** order on both sides, as `cv2.imread`
@@ -27,7 +30,7 @@ import zlib
 
 import numpy as np
 
-from . import hostlib
+from . import hostlib, imconvert
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples a pixel; the bit depths each color type allows
@@ -35,6 +38,12 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # gray of 1, 2 or 4 bits -> 0..255, as libpng's expand_gray_1_2_4_to_8
 _GRAY_SCALE = {1: 255, 2: 85, 4: 17}
+# png_set_rgb_to_gray(png, 1, 0.299, 0.587): libpng's 15-bit coefficients
+# (red, green, blue) = 29900 * 32768 // 100000, 58700 * 32768 // 100000, rest
+_RGB_TO_GRAY = (9797, 19234, 3737)
+# png_gamma_significant: a file gamma this far from 1.0 (in 1e-5) makes
+# libpng gamma-correct its color-to-gray
+_GAMMA_THRESHOLD = 5000
 
 _CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
@@ -122,21 +131,34 @@ def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
     return unpacked.reshape(h, -1)[:, :w].reshape(h, w, 1)
 
 
+def libpng_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's png_do_rgb_to_gray without gamma tables, on RGB samples
+    [H, W, 3]: (9797 R + 19234 G + 3737 B) >> 15 at 8 bits (truncated),
+    the same + 2^14 at 16 bits (rounded), and R where R = G = B. Held to
+    cv2.imread over all 2^24 8-bit triples (tests/test_torch_imread.py)."""
+    p = rgb.astype(np.int64)
+    r, g, b = p[..., 0], p[..., 1], p[..., 2]
+    mix = _RGB_TO_GRAY[0] * r + _RGB_TO_GRAY[1] * g + _RGB_TO_GRAY[2] * b
+    mix = (mix + (16384 if rgb.dtype == np.uint16 else 0)) >> 15
+    return np.where((r == g) & (g == b), r, mix).astype(rgb.dtype)
+
+
 def read_png(path: str, mode: str) -> np.ndarray:
     """Decode a non-interlaced PNG as cv2.imread does.
 
     mode "color" (cv2.IMREAD_COLOR): BGR uint8 [H, W, 3] from any format;
     "anydepth" (cv2.IMREAD_ANYDEPTH): a gray image as [H, W] uint16 (16
-    bits) or uint8 (the others; gray+alpha drops the alpha), and a
-    ValueError for a color or palette image."""
-    if mode not in ("color", "anydepth"):
-        raise ValueError(f"unknown PNG read mode {mode!r}")
+    bits) or uint8 (the others; alpha dropped, a color or palette image
+    turned gray as libpng does). A color image read as depth with a
+    significant gAMA, an sRGB or an iCCP chunk raises: libpng's gray is
+    gamma-corrected there."""
+    imconvert.check_mode(mode)
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8
-    header = palette = None
+    header = palette = gamma_chunk = None
     idat = []
     while pos < len(blob):
         (n,) = struct.unpack(">I", blob[pos : pos + 4])
@@ -149,6 +171,10 @@ def read_png(path: str, mode: str) -> np.ndarray:
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind in (b"sRGB", b"iCCP") or (
+                kind == b"gAMA" and len(body) == 4
+                and abs(struct.unpack(">I", body)[0] - 100000) > _GAMMA_THRESHOLD):
+            gamma_chunk = kind.decode()
         elif kind == b"IEND":
             break
     if header is None:
@@ -159,8 +185,9 @@ def read_png(path: str, mode: str) -> np.ndarray:
     if depth not in _DEPTHS.get(ctype, ()):
         raise ValueError(f"{path}: unsupported color type {ctype} at {depth} bits")
     gray = ctype in (0, 4)
-    if mode == "anydepth" and not gray:
-        raise ValueError(f"{path}: a depth frame must be a gray PNG, got color type {ctype}")
+    if mode == "anydepth" and not gray and gamma_chunk:
+        raise ValueError(f"{path}: a color PNG with a {gamma_chunk} chunk read as depth (libpng's "
+                         "gamma-corrected color-to-gray is not decoded)")
     channels = _CHANNELS[ctype]
     row_bytes = -(-w * channels * depth // 8)
     rows = unfilter(zlib.decompress(b"".join(idat)), h, row_bytes, max(1, channels * depth // 8))
@@ -173,13 +200,10 @@ def read_png(path: str, mode: str) -> np.ndarray:
         px = full[px[:, :, 0]]
     elif gray and depth < 8:
         px = px * np.uint8(_GRAY_SCALE[depth])
-    if mode == "anydepth":
-        return np.ascontiguousarray(px[:, :, 0])
-    if depth == 16:
-        px = (px >> 8).astype(np.uint8)
-    if gray:
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(px[:, :, 2::-1])
+    px = px[:, :, :1] if gray else px[:, :, :3]  # alpha dropped
+    if mode == "anydepth" and not gray:
+        return libpng_gray(px)
+    return imconvert.convert(px, mode, "rgb")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -7,8 +7,11 @@ the CPU.
 through both CLIs on the fixture, once each in a module-scoped fixture, and
 their printed lines must be equal once the wall-clock numbers are masked;
 the overlay PNGs must be equal pixel for pixel. The cases of
-`tests/test_cli.py` run through the port. The port decodes PNG only: a JPEG
-frame raises a ValueError that names it.
+`tests/test_cli.py` run through the port. `detect` and `evaluate --gt yml`
+also run through both over two sequences of the other frame formats
+(`tests/test_torch_imread.sequences`): the fixture as a progressive JPEG
+with its depth as an LZW and a Deflate TIFF, and the fixture as a PPM and
+a BMP with its depth as a 16-bit PGM.
 """
 
 import contextlib
@@ -164,6 +167,38 @@ def test_jpeg_sequence_equals_jax(runs, command):
     seq = os.path.join(str(runs["tmp"]), "benchmarkLINEMOD")
     color, _ = load_frame(os.path.join(seq, "color0.jpg"), os.path.join(seq, "depth0.dpt"))
     assert np.array_equal(color, cv2.imread(os.path.join(seq, "color0.jpg")))
+
+
+@pytest.fixture(scope="module")
+def format_runs(tmp_path_factory):
+    """`detect` and `evaluate --gt yml` over both sequences through both
+    CLIs: {(sequence, command): {"jax"/"port": (rc, out, err)}}."""
+    from linemod_tpu.cli import main as jax_main
+    from test_torch_imread import cli_argv, sequences
+
+    from linemod_tpu_torch.cli import main as port_main
+
+    out = {}
+    for name, seq in sequences(str(tmp_path_factory.mktemp("formats"))).items():
+        for command in ("detect", "evaluate"):
+            for which, main, extra in (("jax", jax_main, []), ("port", port_main, ["--device", "cpu"])):
+                out.setdefault((name, command), {})[which] = run_cli(main, cli_argv(command, seq) + extra)
+    return out
+
+
+@pytest.mark.parametrize("command", ["detect", "evaluate"])
+@pytest.mark.parametrize("sequence", ["progressive", "lossless"])
+def test_format_sequences_equal_jax(format_runs, sequence, command):
+    """Over the progressive JPEG + TIFF frames and the PPM / BMP + PGM
+    frames both CLIs print the same lines, which are the goldens'
+    (tests/goldens/imread_ref.npz); the lossless ones are the PNG
+    fixture's."""
+    (rc_j, out_j, _), (rc_p, out_p, _) = format_runs[(sequence, command)]["jax"], format_runs[(sequence, command)]["port"]
+    assert rc_p == rc_j == 0
+    assert masked(out_p) == masked(out_j)
+    assert masked(out_p) == list(np.load(os.path.join(REPO, "tests", "goldens", "imread_ref.npz"))[
+        f"{sequence}_{command}_lines"])
+    assert len(masked(out_p)) == 3 and masked(out_p)[1].startswith("frame 1: ")
 
 
 def test_cuda_without_card_is_an_error(monkeypatch):

@@ -1,5 +1,6 @@
 """The port's file readers against the JAX package's: PNG decoding against
-OpenCV, FileStorage YAML against the PyYAML-based reader, and the config
+OpenCV (every format in both read modes, a color file read as depth as
+libpng's gray), FileStorage YAML against the PyYAML-based reader, and the config
 dataclasses and ground-truth pose built from them. All comparisons exact."""
 
 import dataclasses
@@ -91,8 +92,8 @@ PNG_FORMATS = [
 @pytest.mark.parametrize("name, ctype, depth", PNG_FORMATS, ids=[f[0] for f in PNG_FORMATS])
 def test_png_format_equals_cv2(tmp_path, name, ctype, depth, ftype):
     """Each format under each filter type: read as a color frame equal to
-    cv2.imread, as a depth frame (gray formats) equal to cv2.imread with
-    IMREAD_ANYDEPTH; palettes carry a tRNS chunk, which both ignore; the
+    cv2.imread, as a depth frame equal to cv2.imread with IMREAD_ANYDEPTH
+    (a color or palette file as libpng's gray); palettes carry a tRNS chunk, which both ignore; the
     C++ unfilter equals the plain one on the scanlines."""
     import cv2
 
@@ -116,14 +117,10 @@ def test_png_format_equals_cv2(tmp_path, name, ctype, depth, ftype):
     got = read_png(path, "color")
     assert got.dtype == np.uint8 and got.shape == (h, w, 3)
     np.testing.assert_array_equal(got, want)
-    if ctype in (0, 4):
-        want = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
-        got = read_png(path, "anydepth")
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
-    else:
-        with pytest.raises(ValueError, match="gray PNG"):
-            read_png(path, "anydepth")
+    want = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
+    got = read_png(path, "anydepth")
+    assert got.dtype == want.dtype and got.shape == want.shape == (h, w)
+    np.testing.assert_array_equal(got, want)
     with open(path, "rb") as f:
         blob = f.read()
     raw = zlib.decompress(blob[blob.index(b"IDAT") + 4 : blob.rindex(b"IEND") - 8])
@@ -155,11 +152,46 @@ def test_png_written_by_cv2_equals_cv2(tmp_path, name):
     path = str(tmp_path / f"{name}.png")
     assert cv2.imwrite(path, img, [getattr(cv2, params[0]), params[1]] if params else [])
     np.testing.assert_array_equal(read_png(path, "color"), cv2.imread(path))
-    if not extra:
-        want = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
-        got = read_png(path, "anydepth")
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
+    want = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
+    got = read_png(path, "anydepth")
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+GAMMA_CHUNKS = {
+    "gAMA_045455": ([(b"gAMA", (45455).to_bytes(4, "big"))], True),
+    "sRGB": ([(b"sRGB", b"\0")], True),
+    "iCCP": ([(b"iCCP", b"profile\0\0" + zlib.compress(bytes(64)))], True),
+    "gAMA_1": ([(b"gAMA", (100000).to_bytes(4, "big"))], False),
+    "gAMA_0_96": ([(b"gAMA", (96000).to_bytes(4, "big"))], False),
+    "cHRM": ([(b"cHRM", bytes(32))], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GAMMA_CHUNKS))
+def test_png_color_as_depth_with_gamma_chunks(tmp_path, name):
+    """A color PNG read as depth: libpng gamma-corrects its gray when the
+    file's gamma is significant (gAMA away from 1.0, sRGB), so that file
+    raises (iCCP too, which may carry one); a gamma within 0.05 of 1.0 and a
+    cHRM chunk leave libpng's plain gray, equal to cv2's. Read as color
+    every file equals cv2.imread."""
+    import cv2
+
+    from linemod_tpu_torch.utils.png import encode_png, libpng_gray, read_png
+
+    chunks, refused = GAMMA_CHUNKS[name]
+    rgb = np.random.default_rng(3).integers(0, 256, (9, 13, 3)).astype(np.uint8)
+    path = str(tmp_path / f"{name}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb.reshape(9, -1), 13, 2, 8, 0, chunks))
+    np.testing.assert_array_equal(read_png(path, "color"), cv2.imread(path))
+    if refused:
+        if name != "iCCP":  # cv2's gray is gamma-corrected here
+            assert not np.array_equal(cv2.imread(path, cv2.IMREAD_ANYDEPTH), libpng_gray(rgb))
+        with pytest.raises(ValueError, match=f"{name}\\.png: a color PNG with an? {name[:4]} chunk read as depth"):
+            read_png(path, "anydepth")
+    else:
+        np.testing.assert_array_equal(read_png(path, "anydepth"), cv2.imread(path, cv2.IMREAD_ANYDEPTH))
 
 
 def test_png_interlaced_raises(tmp_path):

@@ -4,10 +4,15 @@
 Files are written by `cv2.imencode` from seeded frames and the fixture
 frame: every sampling factor (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), quality
 50 and 95, optimized Huffman tables, restart intervals, gray, odd sizes
-(641x479, 17x9, 3x5, 3x33) and the eight EXIF orientations. Each must
-decode to exactly what `cv2.imread` returns under `IMREAD_COLOR` and
-`IMREAD_ANYDEPTH`. A progressive file, a file cut short and a file that
-is no JPEG raise a ValueError that names the file.
+(641x479, 17x9, 3x5, 3x33) and the eight EXIF orientations, baseline and
+progressive (with a DQT redefined between scans, which libjpeg ignores for
+components already scanned). Each must decode to exactly what
+`cv2.imread` returns under `IMREAD_COLOR` and `IMREAD_ANYDEPTH`. A file
+cut short, a file that is no JPEG and each refused kind (arithmetic-coded,
+lossless, hierarchical, 12-bit, CMYK, Adobe transform 0, a progressive
+file whose scans leave low AC coefficients unrefined, which libjpeg-turbo
+smooths, and scans out of the JPEG rules) raise a ValueError that names
+the file and the kind.
 
 `tests/goldens/jpeg/*.jpg` and `tests/goldens/jpeg_ref.npz` (the sha256 of
 cv2's decode of each, and JAX's `cli evaluate --gt linemod` and `detect`
@@ -18,6 +23,7 @@ the card to; `make_jpeg_goldens` writes them (run
 
 import hashlib
 import os
+import re
 import struct
 
 import numpy as np
@@ -143,8 +149,8 @@ def test_exif_orientation(frames, orientation):
 
 
 def test_golden_files_equal_cv2():
-    """Every committed golden JPEG decodes to cv2's digest (the progressive
-    one raises, naming the file and the frame type)."""
+    """Every committed golden JPEG, the progressive one too, decodes to
+    cv2's digest in both modes."""
     from linemod_tpu_torch.utils.jpeg import read_jpeg
 
     ref = np.load(JPEG_REF)
@@ -153,22 +159,29 @@ def test_golden_files_equal_cv2():
     assert sum(os.path.getsize(os.path.join(JPEG_DIR, n)) for n in names) < 1 << 20
     for name, color_sha, gray_sha in zip(names, ref["color_sha256"], ref["gray_sha256"]):
         path = os.path.join(JPEG_DIR, name)
-        if name.endswith("progressive.jpg"):
-            with pytest.raises(ValueError, match=r"progressive\.jpg: progressive \(SOF2\)"):
-                read_jpeg(path, "color")
-            continue
         assert hashlib.sha256(read_jpeg(path, "color").tobytes()).hexdigest() == color_sha, name
         assert hashlib.sha256(read_jpeg(path, "anydepth").tobytes()).hexdigest() == gray_sha, name
 
 
 def test_progressive_raises_naming_the_file(frames, tmp_path):
+    """The fixture as a progressive file decodes to cv2's image; the same
+    file with its frame marker patched to SOF9 (arithmetic-coded) raises
+    naming the file and the frame type."""
+    import cv2
+
     from linemod_tpu_torch.utils.jpeg import read_jpeg
 
     path = str(tmp_path / "prog.jpg")
+    blob = encode(frames["fixture"], progressive=True)
     with open(path, "wb") as f:
-        f.write(encode(frames["fixture"], progressive=True))
+        f.write(blob)
+    for mode, flag in (("color", cv2.IMREAD_COLOR), ("anydepth", cv2.IMREAD_ANYDEPTH)):
+        assert np.array_equal(read_jpeg(path, mode), cv2.imread(path, flag))
+    path = str(tmp_path / "sof9.jpg")
+    with open(path, "wb") as f:
+        f.write(with_frame_marker(encode(frames["fixture"]), 0xC9))
     for mode in ("color", "anydepth"):
-        with pytest.raises(ValueError, match=r"prog\.jpg: progressive \(SOF2\) JPEG is not decoded"):
+        with pytest.raises(ValueError, match=r"sof9\.jpg: arithmetic-coded sequential \(SOF9\) JPEG is not decoded"):
             read_jpeg(path, mode)
 
 
@@ -216,8 +229,142 @@ def test_frame_dispatch_by_leading_bytes(frames, tmp_path):
     bogus = str(tmp_path / "color.bmp")
     with open(bogus, "wb") as f:
         f.write(b"BM" + bytes(100))
-    with pytest.raises(ValueError, match=r"color\.bmp: neither a PNG nor a JPEG"):
+    with pytest.raises(ValueError, match=r"color\.bmp: a BMP header of 0 bytes is not decoded"):
         load_frame(bogus, depth)
+    with open(bogus, "wb") as f:
+        f.write(b"XY" + bytes(100))
+    with pytest.raises(ValueError, match=r"color\.bmp: not a PNG, JPEG, TIFF, BMP or PNM file"):
+        load_frame(bogus, depth)
+
+
+# -- progressive files and refused kinds ---------------------------------------------------
+
+
+def segments(blob: bytes) -> list:
+    """[(marker, the segment's bytes)] after SOI; a scan's bytes run to the
+    marker that ends its entropy-coded data."""
+    out, pos = [], 2
+    while pos < len(blob):
+        marker = blob[pos + 1]
+        if marker == 0xD9:
+            out.append((marker, blob[pos:pos + 2]))
+            break
+        end = pos + 2 + struct.unpack(">H", blob[pos + 2:pos + 4])[0]
+        if marker == 0xDA:
+            while not (blob[end] == 0xFF and blob[end + 1] != 0 and not 0xD0 <= blob[end + 1] <= 0xD7):
+                end += 1
+        out.append((marker, blob[pos:end]))
+        pos = end
+    return out
+
+
+def join(parts) -> bytes:
+    return b"\xff\xd8" + b"".join(seg for _, seg in parts)
+
+
+def with_frame_marker(blob: bytes, marker: int) -> bytes:
+    """The file with its SOFn marker replaced by `marker`."""
+    return join([(m, bytes((0xFF, marker)) + seg[2:] if 0xC0 <= m <= 0xC2 else seg) for m, seg in segments(blob)])
+
+
+def with_dqt_between_scans(blob: bytes) -> bytes:
+    """A progressive file with both quantization tables redefined (all 1s)
+    before its second scan: libjpeg latches each component's table at its
+    first scan, so the image is the original's."""
+    parts = segments(blob)
+    second = [i for i, (m, _) in enumerate(parts) if m == 0xDA][1]
+    dqt = b"\xff\xdb" + struct.pack(">H", 2 + 2 * 65) + bytes([0]) + bytes([1] * 64) + bytes([1]) + bytes([1] * 64)
+    return join(parts[:second] + [(0xDB, dqt)] + parts[second:])
+
+
+def refused_jpegs(img: np.ndarray) -> dict:
+    """{file name: (bytes, the words its error names)}: a file of each JPEG
+    kind the reader refuses, made from cv2's files of `img` (BGR) by
+    patching headers and scans; no writer here makes them whole."""
+    base, prog = encode(img, sampling="420"), encode(img, progressive=True)
+    parts = segments(base)
+    sof = next(i for i, (m, _) in enumerate(parts) if m == 0xC0)
+    twelve = parts[sof][1][:4] + bytes([12]) + parts[sof][1][5:]
+    body = parts[sof][1][4:]
+    cmyk = b"\xff\xc0" + struct.pack(">H", len(body) + 5) + body[:5] + bytes([4]) + body[6:] + bytes([4, 0x11, 0])
+    adobe = b"\xff\xee" + struct.pack(">H", 14) + b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
+    pparts = segments(prog)
+    scans = [i for i, (m, _) in enumerate(pparts) if m == 0xDA]
+    last = pparts[scans[-1]]
+    bad = pparts[scans[1]][1]
+    n_comp = bad[4]
+    bad = bad[:5 + 2 * n_comp + 1] + bytes([64]) + bad[5 + 2 * n_comp + 2:]  # Se = 64
+    return {
+        "jpeg_sof9.jpg": (with_frame_marker(base, 0xC9), r"arithmetic-coded sequential \(SOF9\)"),
+        "jpeg_sof10.jpg": (with_frame_marker(prog, 0xCA), r"arithmetic-coded progressive \(SOF10\)"),
+        "jpeg_sof3.jpg": (with_frame_marker(base, 0xC3), r"lossless \(SOF3\)"),
+        "jpeg_sof5.jpg": (with_frame_marker(base, 0xC5), r"differential sequential \(SOF5\)"),
+        "jpeg_12bit.jpg": (join(parts[:sof] + [(0xC0, twelve)] + parts[sof + 1:]), "12-bit JPEG"),
+        "jpeg_cmyk.jpg": (join(parts[:sof] + [(0xC0, cmyk)] + parts[sof + 1:]), "4-component JPEG"),
+        "jpeg_adobe_rgb.jpg": (join([(0xEE, adobe)] + parts), r"Adobe transform 0"),
+        "prog_incomplete.jpg": (join(pparts[:scans[-1]] + pparts[scans[-1] + 1:]), "block smoothing"),
+        "prog_refined_twice.jpg": (join(pparts[:-1] + [last] + pparts[-1:]), "bogus progression"),
+        "prog_band_past_63.jpg": (join(pparts[:scans[1]] + [(0xDA, bad)] + pparts[scans[1] + 1:]),
+                                  "invalid progressive scan"),
+    }
+
+
+@pytest.mark.parametrize("sampling", SAMPLING + (None,))
+@pytest.mark.parametrize("source", ["fixture", "noise_641x479", "smooth_641x479", "smooth_17x9", "noise_3x5",
+                                    "smooth_3x33"])
+def test_progressive_sampling_quality_tables_restart(frames, source, sampling):
+    """Progressive files (libjpeg's default scan script: DC first and
+    refine scans, spectral selection, successive approximation, end-of-band
+    runs), quality 50 and 95, optimized tables, a restart interval of 3."""
+    for quality in (50, 95):
+        for extra in ({}, {"optimize": True}, {"restart": 3}):
+            assert_equals_cv2(encode(frames[source], sampling=sampling, quality=quality, progressive=True, **extra))
+
+
+@pytest.mark.parametrize("source", ["fixture", "noise_641x479", "smooth_17x9"])
+def test_progressive_gray_file(frames, source):
+    import cv2
+
+    gray = cv2.cvtColor(frames[source], cv2.COLOR_BGR2GRAY)
+    for quality in (50, 90):
+        assert_equals_cv2(encode(gray, quality=quality, progressive=True))
+        assert_equals_cv2(encode(gray, quality=quality, progressive=True, restart=2))
+
+
+def test_progressive_dqt_between_scans(frames):
+    """A DQT between scans changes no component already scanned: cv2's
+    image is the original file's, and so is the reader's."""
+    blob = encode(frames["smooth_641x479"], quality=75, progressive=True)
+    patched = with_dqt_between_scans(blob)
+    assert_equals_cv2(patched)
+    assert np.array_equal(cv2_decode(patched), cv2_decode(blob))
+
+
+def cv2_decode(blob: bytes):
+    import cv2
+
+    return cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+
+
+@pytest.mark.parametrize("name", ["jpeg_sof9.jpg", "jpeg_sof10.jpg", "jpeg_sof3.jpg", "jpeg_sof5.jpg",
+                                  "jpeg_12bit.jpg", "jpeg_cmyk.jpg", "jpeg_adobe_rgb.jpg", "prog_incomplete.jpg",
+                                  "prog_refined_twice.jpg", "prog_band_past_63.jpg"])
+def test_refused_kinds_raise_naming_the_file(frames, tmp_path, name):
+    """Each refused kind raises naming the file and the kind. cv2 decodes
+    the incomplete progressive file (smoothing its blocks) and the one
+    refined twice (libjpeg only warns) and refuses the band past 63; the
+    reader never returns another image."""
+    from linemod_tpu_torch.utils.jpeg import read_jpeg
+
+    blob, words = refused_jpegs(frames["smooth_641x479"][:120, :160])[name]
+    if name.startswith("prog_"):
+        assert (cv2_decode(blob) is None) == (name == "prog_band_past_63.jpg")
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(blob)
+    for mode in ("color", "anydepth"):
+        with pytest.raises(ValueError, match=re.escape(path) + ": .*" + words):
+            read_jpeg(path, mode)
 
 
 # -- the goldens ---------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""The PyTorch port must run where JAX, OpenCV, PyYAML and the JAX package
-are not installed: importing every module of `linemod_tpu_torch` (in a
-fresh interpreter, with imports of those four blocked) must neither need
-nor load them, and no source of the port or of chip_smoke.py (whose
+"""The PyTorch port must run where JAX, OpenCV, PyYAML, PIL and the JAX
+package are not installed: importing every module of `linemod_tpu_torch`
+(in a fresh interpreter, with imports of those five blocked) must neither
+need nor load them, and no source of the port or of chip_smoke.py (whose
 phase-11 rank runs in its own interpreter) may import them. A name is blocked by its first dotted component, so
 `linemod_tpu_torch` itself is not."""
 
@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "linemod_tpu")
+BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "PIL", "linemod_tpu")
 preloaded = {m for m in BLOCKED if m in sys.modules}
 
 
@@ -60,10 +60,12 @@ def test_port_imports_without_jax_cv2_yaml():
     capture = {"linemod_tpu_torch." + m for m in (
         "ops.aruco", "pipeline.aruco_capture", "utils.jpeg", "utils.pnp", "utils.yamlcv")}
     assert capture <= set(result["modules"]), capture - set(result["modules"])
+    readers = {"linemod_tpu_torch.utils." + m for m in ("tiff", "bmp", "pnm", "imconvert", "png")}
+    assert readers <= set(result["modules"]), readers - set(result["modules"])
     assert result["loaded"] == []
 
 
-_SOURCE_BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "linemod_tpu")
+_SOURCE_BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "PIL", "linemod_tpu")
 
 
 def _port_sources():
