@@ -182,15 +182,29 @@ Drives the port's paths on the card and checks them, in phases:
    Times: host decode of the 640x480 frame in each format beside PNG and
    baseline JPEG, `cli evaluate` ms a frame over progressive and baseline
    JPEG;
-15. the probes P1 and P2: the probe scripts' sequences through the wrappers,
+15. the measurement entry points (`tools_phase`): `python -m
+   linemod_tpu_torch.tools.bench` in a process of its own, as a user runs
+   it: it exits 0, its last line has every key of bench.py's and `device`,
+   none null, the metric has no `_ACCURACY_FAIL`, its VSD and ADD are
+   within 1e-3 of phase 3's, and 2.1 and 2.2 launch once a frame on its
+   headline streams (2.3 never); the line is printed. Then, each in a
+   process of its own at its defaults, `tools.profile_stages` (2.1 and 2.2 once a
+   full match), `profile_detect`, `profile_icp` and `profile_multimodel`
+   (2.1 and 2.2 once a frame), and `bigbank_bench --subdivs 0` (1,800
+   templates generated with symmetry pruning off; its prefiltered frame
+   launches 2.1, 2.2 and 2.3 once each, and each of those launches is held
+   against its plain twin on the same inputs). Every tool's own lines are
+   printed; any failure fails the phase;
+16. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
-16. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
+17. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
    numbers under `dual`, the ICP path's launches under `icp`, the
    two-class shapes' numbers under `multi`, the launches of detection
    with the card's generated color bank under `generated`, phase 10's
    launches a frame of each path under `cli_launches_a_frame`, phase 13's
    JPEG paths' under `jpeg_launches_a_frame`, phase 14's under
-   `imread_launches_a_frame`, phase 11's launches a frame a rank and max|kernel - plain| over the ranks
+   `imread_launches_a_frame`, phase 15's under `tools_launches_a_frame`,
+   by tool, phase 11's launches a frame a rank and max|kernel - plain| over the ranks
    under `sharded`, by world and path, and phase 12's launches a frame and
    max|kernel - plain| under `quant`, `delta` and `cut_opt_ins`, by path),
    after a line of the seconds from the start to each phase, then the
@@ -1911,6 +1925,85 @@ def imread_phase(dev, card: str) -> dict:
     return launches
 
 
+BENCH_TIMEOUT_S = 900
+TOOL_TIMEOUT_S = 600
+ONE_EACH = {"coarse_scores": 1, "fine_scores": 1, "coarse_max": 0}
+
+
+def tools_phase(dev, card: str, cam, main_vsd: float, main_add: float) -> dict:
+    """Phase 15: the measurement entry points on the card. Returns each
+    tool's kernel launches a frame (a full match for profile_stages)."""
+    from linemod_tpu_torch.models.template_bank import TemplateBank
+    from linemod_tpu_torch.ops.detect_core import detect_frame
+    from linemod_tpu_torch.tools import bench, bigbank_bench
+    from linemod_tpu_torch.tools.fixture import OUT
+
+    phase(15, "tools.bench in a process of its own, as a user runs it")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "linemod_tpu_torch.tools.bench"], cwd=REPO, capture_output=True,
+                         text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"tools.bench exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    detail = json.loads(lines[-2])["detail"]
+    gate = detail["gate"]
+    phase(15, f"tools.bench ({seconds:.1f} s in its own process): metric {result['metric']}, gate VSD "
+              f"{gate['vsd']:.5f} (phase 3: {main_vsd:.5f}), ADD {gate['add']:.4f} mm (phase 3: {main_add:.4f}); "
+              f"headline launches a frame {detail['launches_a_frame']}")
+    print(lines[-2])
+    print(lines[-1], flush=True)
+    check(set(result) == set(bench.RESULT_KEYS), f"tools.bench keys {sorted(result)}")
+    check(all(result[k] is not None for k in bench.RESULT_KEYS), "tools.bench: a key is null")
+    check(result["metric"] == "detector_fps_per_chip", f"tools.bench metric {result['metric']}")
+    check(abs(gate["vsd"] - main_vsd) <= SCORE_ATOL and abs(gate["add"] - main_add) <= SCORE_ATOL,
+          "tools.bench: VSD or ADD differs from phase 3's")
+    check(detail["launches_a_frame"] == ONE_EACH, "tools.bench: 2.1 and 2.2 not once a frame")
+    launches = {"bench": detail["launches_a_frame"]}
+
+    def timed(name, argv=()):
+        """Run tools.<name> in a process of its own, as a user runs it (a
+        fresh process: a profiler session drops more records the more
+        sessions its process has run); print its lines and return its last
+        one, the results."""
+        t_start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"linemod_tpu_torch.tools.{name}", *argv], cwd=REPO,
+                              capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+        check(proc.returncode == 0, f"tools.{name} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        print("\n".join(lines[:-1]))
+        phase(15, f"tools.{' '.join([name, *argv])} ran in {time.perf_counter() - t_start:.1f} s in its own process")
+        return json.loads(lines[-1])
+
+    stages = timed("profile_stages")
+    launches["profile_stages"] = stages["stages"][0]["launches"]
+    check(stages["stages"][0]["name"] == "full match" and launches["profile_stages"] == ONE_EACH,
+          "profile_stages: 2.1 and 2.2 not once a full match")
+    check(all(row["device_ms"] is not None for row in stages["stages"]), "profile_stages: no device time")
+    launches["profile_detect"] = timed("profile_detect")["launches_a_frame"]
+    launches["profile_icp"] = timed("profile_icp")["launches_a_frame"]
+    for row in timed("profile_multimodel")["multi"]:
+        launches[f"profile_multimodel_{row['n_classes']}"] = row["launches_a_frame"]
+    big = timed("bigbank_bench", ("--subdivs", "0"))["configs"][0]
+    launches["bigbank_bench_s0"] = big["launches_a_frame"]
+    for tool in ("profile_detect", "profile_icp", "profile_multimodel_1", "profile_multimodel_2",
+                 "profile_multimodel_3"):
+        check(launches[tool] == ONE_EACH, f"{tool}: 2.1 and 2.2 not once a frame")
+    check(big["planned_templates"] == 1800 and big["n_templates"] > 0 and big["cut_exact"]
+          and big["device_ms_a_frame"] is not None, f"bigbank_bench subdiv 0: {big}")
+    check(big["launches_a_frame"] == {"coarse_scores": 1, "fine_scores": 1, "coarse_max": 1},
+          "bigbank_bench: 2.1, 2.2 and 2.3 not once a frame on the prefiltered cut")
+    # the generated bank's prefiltered frame, each launch against its plain twin
+    bank = TemplateBank.load(os.path.join(OUT, "bigbank_s0.npz"))
+    state = bigbank_bench.bigbank_state(cam, bank, dev)
+    _, kept, err = kept_launches(lambda: detect_frame(state, bigbank_bench.random_frame(cam, dev)))
+    phase(15, f"bigbank_bench subdiv 0 frame: launches {kept}, max|kernel - plain| {err} ({card})")
+    check(kept == big["launches_a_frame"] and max(err.values()) == 0, "bigbank_bench: a kernel != plain")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2312,6 +2405,7 @@ def main() -> int:
     verts = model_vertices(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"), dev)
 
     def check_pose(poses_, want, label, n_phase):
+        """The pose gate; returns the pose's ADD."""
         check(len(poses_) == 1, f"{label}: {len(poses_)} poses detected")
         pose = poses_[0]
         dt = float(np.abs(pose.translation - want["translation"]).max())
@@ -2321,8 +2415,9 @@ def main() -> int:
               f"max|dq| {dq:.3g} vs JAX; ADD {add:.3f} mm vs ground truth")
         check(dt <= 0.5 and dq <= 1e-4, f"{label}: pose differs from the JAX pose")
         check(add <= OBJECT_DIAMETER, f"{label}: ADD {add} mm > {OBJECT_DIAMETER}")
+        return add
 
-    check_pose(poses, ref, "main path", 3)
+    main_add = check_pose(poses, ref, "main path", 3)
 
     # the pose scored with VSD on the card; the card's render of the ground
     # truth against JAX's
@@ -2330,12 +2425,14 @@ def main() -> int:
     scene = depth_c.astype(np.float32)
 
     def check_vsd(pose, want, label, n_phase):
+        """The VSD gate; returns the pose's VSD."""
         vsd = bench.score_vsd(scene, gt, pose)
         phase(n_phase, f"{label} pose VSD {vsd:.5f} vs ground truth (JAX's {float(want):.5f})")
         check(vsd < VSD_CORRECT, f"{label}: VSD {vsd} >= {VSD_CORRECT}")
         check(abs(vsd - float(want)) <= SCORE_ATOL, f"{label}: VSD differs from JAX's")
+        return vsd
 
-    check_vsd(poses[0], dual_ref["color_vsd"], "main path", 3)
+    main_vsd = check_vsd(poses[0], dual_ref["color_vsd"], "main path", 3)
     render0 = bench.render(gt).cpu().numpy()
     want0 = dual_ref["render0"]
     covered = int((want0 > 0).sum())
@@ -2567,7 +2664,10 @@ def main() -> int:
     # -- phase 14: the other frame formats
     imread_launches = imread_phase(dev, card)
 
-    # -- phase 15: the probes
+    # -- phase 15: the measurement entry points
+    tool_launches = tools_phase(dev, card, cam, main_vsd, main_add)
+
+    # -- phase 16: the probes
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (16, 256), dtype=np.uint8)).to(dev)
     shifts = [(0, 0), (3, 17), (15, 255), (8, 128)]
     for fn in (probes.bitcast_u8_to_i32, probes.bitcast_i32_to_u8, probes.roll2d_u8):
@@ -2600,12 +2700,12 @@ def main() -> int:
     check(torch.equal(x.view(4, 4, 256).transpose(1, 2).contiguous().view(torch.int32)[..., 0], words)
           and torch.equal(words.view(torch.uint8).view(4, 256, 4).transpose(1, 2).reshape(16, 256), x),
           "the permuted copies are not the bitcasts")
-    phase(15, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
+    phase(16, f"probe launches {probe_launches}; P1 max|kernel-plain| {err_p1}, P2 max|kernel-plain| {err_p2}")
     for name, (k_t, p_t, l_t) in probe_ms.items():
         print(f"  {name}: kernel {fmt(k_t)}, plain {fmt(p_t)}, library {fmt(l_t)} ({card})")
     check(err_p1 == 0 and err_p2 == 0, "probe kernel != plain")
 
-    # -- phase 16: results
+    # -- phase 17: results
     def sharded_launches(i):
         """Phase 11's launches a frame a rank of kernel i (2.1, 2.2, 2.3)
         and its max|kernel - plain| over every rank's launches, by world and
@@ -2646,6 +2746,7 @@ def main() -> int:
          "cli_launches_a_frame": {path: n_["coarse"] for path, n_ in cli_launches.items()},
          "jpeg_launches_a_frame": {path: n_["coarse"] for path, n_ in jpeg_launches.items()},
          "imread_launches_a_frame": {path: n_["coarse"] for path, n_ in imread_launches.items()},
+         "tools_launches_a_frame": {tool: n_["coarse_scores"] for tool, n_ in tool_launches.items()},
          "sharded": sharded_launches(0), **ingest_launches("coarse_scores")},
         {**entry("fine_scores", "similarity.cu", f"{pallas}:262", launches["fine"], max(err_f, dual_err["fine"]),
                  *times["fine"], bounds["fine"], library["fine"]),
@@ -2654,11 +2755,13 @@ def main() -> int:
          "cli_launches_a_frame": {path: n_["fine"] for path, n_ in cli_launches.items()},
          "jpeg_launches_a_frame": {path: n_["fine"] for path, n_ in jpeg_launches.items()},
          "imread_launches_a_frame": {path: n_["fine"] for path, n_ in imread_launches.items()},
+         "tools_launches_a_frame": {tool: n_["fine_scores"] for tool, n_ in tool_launches.items()},
          "sharded": sharded_launches(1), **ingest_launches("fine_scores")},
         {**entry("coarse_max", "similarity.cu", f"{pallas}:160", big_launches["coarse_max"],
                  max(err_m, err_bm, dual_err["coarse_max"]), *max_times, bounds["coarse_max"], None),
          "dual": dual("coarse_max", dual_launches["coarse_max"]),
          "icp": {"launches": icp_launches["coarse_max"]}, "sharded": sharded_launches(2),
+         "tools_launches_a_frame": {tool: n_["coarse_max"] for tool, n_ in tool_launches.items()},
          **ingest_launches("coarse_max")},
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
@@ -2669,7 +2772,7 @@ def main() -> int:
         entry("roll2d_u8", "probes.cu", "scripts/test_u8_roll.py:26", probe_launches["roll2d_u8"], err_p2,
               *probe_ms["roll2d_u8"][:2], bound(2 * x.numel(), 0), probe_ms["roll2d_u8"][2]),
     ]
-    phase(16, "seconds from the start to each phase's first line: "
+    phase(17, "seconds from the start to each phase's first line: "
               + ", ".join(f"{n} {t:.1f}" for n, t in sorted(PHASE_AT.items())))
     print(card)
     print(json.dumps({"kernels": kernels}))

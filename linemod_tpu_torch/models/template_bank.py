@@ -33,6 +33,9 @@ MAX_FEATURES = 64  # 63 features padded to 64
 HULL_VERTS = 32
 BG_DEPTH = 65535.0
 CROP = 320  # the template render window (object centred)
+# views quantized and cut at once: the quantizer's float32 temporaries of
+# the 1,620 views of a radius at subdivision 2 outgrow an 80 GB card
+VIEW_CHUNK = 256
 TIMED_PHASES = ("render", "quantize", "cut", "scan", "assemble")
 # the bank's arrays, in the order of the npz
 FIELDS = ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull")
@@ -358,11 +361,16 @@ def build_template_bank(
         depth = torch.stack([d for d, _ in views])
         color = torch.stack([c for _, c in views]) * 255.0
         t0 = lap("render", t0)
-        maps = quantize_views(color, depth, dual)
-        t0 = lap("quantize", t0)
-        cands.append({k: cut_candidates(*m) for k, m in maps.items()})
-        lap("cut", t0)
-        del views, color, maps
+        # every step is per view, so a radius quantized and cut a chunk of
+        # views at a time gives the same rows as in one batch
+        chunks = []
+        for v0 in range(0, len(q), VIEW_CHUNK):
+            maps = quantize_views(color[v0 : v0 + VIEW_CHUNK], depth[v0 : v0 + VIEW_CHUNK], dual)
+            t0 = lap("quantize", t0)
+            chunks.append({k: cut_candidates(*m) for k, m in maps.items()})
+            t0 = lap("cut", t0)
+        cands.append({k: concat_candidates([c[k] for c in chunks]) for k in chunks[0]})
+        del views, color, maps, chunks
         quats.append(q)
         zs.append(np.full(len(q), radius, np.float32))
         depths.append(depth)

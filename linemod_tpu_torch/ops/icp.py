@@ -280,6 +280,16 @@ class IcpRefiner:
             for i in range(r.shape[0])
         ])
 
+    def verify_window(self, padded_scene: torch.Tensor, bbox) -> tuple:
+        """(crop, origin (x, y)) of the VERIFY_WINDOW square centred on
+        `bbox` and kept inside the frame, from the scene depth padded by the
+        window on its right and bottom (refine_submit's verify window)."""
+        w, h = self.cam.width, self.cam.height
+        vw = min(VERIFY_WINDOW, w, h)
+        ox = min(max(bbox[0] + bbox[2] // 2 - vw // 2, 0), w - vw)
+        oy = min(max(bbox[1] + bbox[3] // 2 - vw // 2, 0), h - vw)
+        return padded_scene[oy : oy + vw, ox : ox + vw], (ox, oy)
+
     def refine_submit(self, depth: np.ndarray, groups: list):
         """Refine and verify all of a frame's groups (lists of poses, none
         empty); returns the handle for refine_collect: packed [G, P, 13]
@@ -297,9 +307,7 @@ class IcpRefiner:
             return None
         if self.marr is None:
             return ("refine_only", depth, groups)
-        cam = self.cam
-        w, h = cam.width, cam.height
-        vw = min(VERIFY_WINDOW, w, h)
+        vw = min(VERIFY_WINDOW, self.cam.width, self.cam.height)
         depth_t = self._depth(depth)
         padded_scene = F.pad(depth_t, (0, vw, 0, vw))
         p_pad = _pow2(max(len(g) for g in groups))
@@ -307,10 +315,8 @@ class IcpRefiner:
         for g in list(groups) + [groups[-1]] * (_pow2(len(groups)) - len(groups)):
             bbox = tuple(int(v) for v in g[0].bounding_box)
             r, t = self._refine_tensors(depth_t, bbox, *_pose_arrays(g, p_pad))
-            ox = min(max(bbox[0] + bbox[2] // 2 - vw // 2, 0), w - vw)
-            oy = min(max(bbox[1] + bbox[3] // 2 - vw // 2, 0), h - vw)
-            crop = padded_scene[oy : oy + vw, ox : ox + vw]
-            means = self._verify(r, t, crop, (ox, oy), (vw, vw))
+            crop, origin = self.verify_window(padded_scene, bbox)
+            means = self._verify(r, t, crop, origin, (vw, vw))
             out.append(torch.cat([r.reshape(-1, 9), t, means[:, None]], dim=1))
         return torch.stack(out), groups
 

@@ -311,9 +311,14 @@ def coarse_similarity(state: MatchState, coarse_planes: torch.Tensor) -> torch.T
     """[N, G] float32 percent similarity of every template at every coarse
     cell, -1 where the template does not fit the image at that cell."""
     ch, cw = state.coarse_shape[0], state.coarse_shape[1]
-    scores = coarse_scores(
-        coarse_planes, state.off3_coarse, ch, cw, plan=state.coarse_plan
-    ).reshape(-1, ch * cw)
+    return coarse_percent(state, coarse_scores(coarse_planes, state.off3_coarse, ch, cw, plan=state.coarse_plan))
+
+
+def coarse_percent(state: MatchState, scores: torch.Tensor) -> torch.Tensor:
+    """coarse_similarity from the scan's raw int32 [N, ch, cw] scores: the
+    percent scale, and -1 where the template does not fit the image."""
+    ch, cw = state.coarse_shape[0], state.coarse_shape[1]
+    scores = scores.reshape(-1, ch * cw)
     dev = scores.device
     gy = torch.arange(ch, dtype=torch.int32, device=dev).repeat_interleave(cw)
     gx = torch.arange(cw, dtype=torch.int32, device=dev).repeat(ch)

@@ -1,24 +1,42 @@
-"""Kernel times on one NVIDIA GPU, without the host's enqueue in them.
+"""Kernel and stage times on one NVIDIA GPU, without the host's enqueue in them.
 
 - `event_ms(fn, reps)`: CUDA events around `reps` back-to-back calls of
   fn(), divided by reps. The device first runs a sleep kernel long enough
   for the host to enqueue every call, so the events time the device's
-  work, not the Python wrapper's checks and launch.
+  work, not the Python wrapper's checks and launch. A call of more
+  launches than the driver's pending-launch queue holds (a whole frame:
+  ~1,550) blocks the host mid-sleep, and the events then time the enqueue.
 - `device_ms(fn, reps)`: torch.profiler's CUPTI records of `reps` calls:
   the median over calls of the device time of each call's kernels and
   copies (the records are split into calls by order, so every call must
-  launch the same number of device operations).
+  launch the same number of device operations). `device_profile` also
+  gives the device operations a call; it brackets the calls with guard
+  launches, since a session drops records at its ends, tries another
+  session where records are missing, and gives None (not measured) after
+  ATTEMPTS.
+- `host_ms(fn, reps, device)`: the host clock around synchronised calls;
+  `profile_call` the profiler's numbers on the card, the host clock's on
+  the CPU.
+- `reset_launches()`, `launches(per)`: the scan kernels' launch counts
+  (ops/similarity_cuda's wrappers count each launch).
+- `card_name(device)`: the card's name and power limit as nvidia-smi gives
+  them, or "cpu".
 
-Both warm up first. Used by `chip_smoke.py` and the split tool.
+All warm up first. Used by `chip_smoke.py`, the split tool and the
+measurement entry points (`tools/bench.py`, `tools/profile_*.py`).
 """
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
 
+from ..ops import similarity_cuda as sc
+
+KERNELS = ("coarse_scores", "fine_scores", "coarse_max")
 # the sleep kernel counts clock cycles; at most the H100's 1.98 GHz boost
 # clock, so a sleep of this many cycles a second lasts at least that long
 _CYCLES_PER_S = 1.98e9
@@ -44,27 +62,128 @@ def event_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50) -> float | None:
-    """Median device ms of one fn() call from the profiler's device records
-    of `reps` calls, after a warm-up; None where it recorded none."""
+# sleep kernels of one cycle launched before and after the profiled calls:
+# a profiler session drops device records, more the more sessions its
+# process has run (measured on the H100 with torch 2.11: about one more a
+# session at first; in chip_smoke.py's last phase all 50 records of a
+# one-launch call), and these absorb a loss at the session's ends
+GUARD_LAUNCHES = 1024
+# sessions tried before a call is given up as not measured: now and then
+# a session also loses records in its middle (2,257 of a dual frame's
+# 21,350 once, 29,360 of the planes' once), which the checks catch
+ATTEMPTS = 3
+
+
+def _complete_records(fn, reps: int) -> list | None:
+    """The device records of `reps` fn() calls in one profiler session,
+    between two runs of GUARD_LAUNCHES sleep kernels; None where the calls
+    left no record, either run of guards left none, or the calls' records
+    do not split evenly into the calls (records may be missing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's records add nothing here and make
+    # reading a session of a few thousand launches take seconds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GUARD_LAUNCHES):
+            torch.cuda._sleep(1)
         for _ in range(reps):
             fn()
+        for _ in range(GUARD_LAUNCHES):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    ops = sorted(
+    records = sorted(
         (e for e in prof.events() if e.device_type == DeviceType.CUDA),
         key=lambda e: e.time_range.start,
     )
-    if not ops:
+    ops = [e for e in records if "spin_kernel" not in e.name]
+    guards = [e.time_range.start for e in records if "spin_kernel" in e.name]
+    if not ops or len(ops) % reps:
         return None
-    if len(ops) % reps:
-        return sum(e.time_range.elapsed_us() for e in ops) / reps / 1e3
-    per = len(ops) // reps
-    return statistics.median(
-        sum(e.time_range.elapsed_us() for e in ops[i * per : (i + 1) * per]) for i in range(reps)
-    ) / 1e3
+    if not any(t < ops[0].time_range.start for t in guards) or not any(t > ops[-1].time_range.start for t in guards):
+        return None
+    return ops
+
+
+def device_profile(fn, reps: int = 50) -> tuple[float | None, float | None]:
+    """(median device ms of one fn() call, device operations a call) from
+    the profiler's device records of `reps` calls, after a warm-up: the
+    first of ATTEMPTS sessions whose records are complete
+    (`_complete_records`), else (None, None), not measured."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        ops = _complete_records(fn, reps)
+        if ops is not None:
+            per = len(ops) // reps
+            return statistics.median(
+                sum(e.time_range.elapsed_us() for e in ops[i * per : (i + 1) * per]) for i in range(reps)
+            ) / 1e3, float(per)
+    return None, None
+
+
+def device_ms(fn, reps: int = 50) -> float | None:
+    """Median device ms of one fn() call from the profiler's device records
+    of `reps` calls, after a warm-up; None where it recorded none."""
+    return device_profile(fn, reps)[0]
+
+
+def sync(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_ms(fn, reps: int, device) -> list[float]:
+    """Host ms of each of `reps` fn() calls, each between two syncs of
+    `device`, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def profile_call(fn, reps: int, device) -> dict:
+    """{"device_ms", "operations", "host_ms"} of one fn() call: the
+    profiler's device ms and operations on the card (host_ms None), the
+    host clock's median on the CPU (the device numbers None)."""
+    if torch.device(device).type == "cuda":
+        ms, ops = device_profile(fn, reps)
+        return {"device_ms": ms, "operations": ops, "host_ms": None}
+    return {"device_ms": None, "operations": None, "host_ms": statistics.median(host_ms(fn, reps, device))}
+
+
+def shown(v, spec: str = ".4f", unit: str = " ms") -> str:
+    """A measured number as printed, or "not measured" for None."""
+    return "not measured" if v is None else format(v, spec) + unit
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        getattr(sc, name).launches = 0
+
+
+def launches(per: int = 1) -> dict:
+    """Each scan kernel's launches since reset_launches, over `per`."""
+    return {name: getattr(sc, name).launches / per for name in KERNELS}
+
+
+def card_name(device) -> str:
+    """"cpu", or the card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (the
+    first card's line). Raises where nvidia-smi gives nothing."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines:
+        raise RuntimeError(f"nvidia-smi gave no card name and power limit: {out.stderr.strip()}")
+    return lines[0].strip()

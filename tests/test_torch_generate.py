@@ -421,3 +421,20 @@ def main():
 
 if __name__ == "__main__":
     main()
+
+
+@pytest.mark.parametrize("case", ["tetra_sphere", "cube_dual"])
+def test_bank_in_view_chunks_equals_jax(case, monkeypatch):
+    """A radius quantized and cut in chunks of views (5 of its 12 or 9
+    here; the card's generation takes 256 at a time) gives JAX's bank."""
+    from linemod_tpu.config import ModelProperties
+    from linemod_tpu.models.template_bank import build_template_bank as j_build
+    from linemod_tpu_torch.models import template_bank
+
+    monkeypatch.setattr(template_bank, "VIEW_CHUNK", 5)
+    name, kw, planes = BANK_CASES[case]
+    cam, settings, props = _cam(), _settings(**kw), ModelProperties(planes_of_symmetry=planes)
+    mesh = _mesh(name)
+    got = template_bank.build_template_bank(port_mesh(mesh), name, *port_config(cam, settings, props), "cpu")
+    assert got.num_templates > template_bank.VIEW_CHUNK
+    assert_banks_equal(got, j_build(mesh, name, cam, settings, props))

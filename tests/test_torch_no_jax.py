@@ -62,6 +62,10 @@ def test_port_imports_without_jax_cv2_yaml():
     assert capture <= set(result["modules"]), capture - set(result["modules"])
     readers = {"linemod_tpu_torch.utils." + m for m in ("tiff", "bmp", "pnm", "imconvert", "png")}
     assert readers <= set(result["modules"]), readers - set(result["modules"])
+    measurement = {"linemod_tpu_torch.tools." + m for m in (
+        "bench", "fixture", "timing", "profile_stages", "profile_detect", "profile_icp", "profile_multimodel",
+        "bigbank_bench")}
+    assert measurement <= set(result["modules"]), measurement - set(result["modules"])
     assert result["loaded"] == []
 
 
