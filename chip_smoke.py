@@ -190,11 +190,13 @@ Drives the port's paths on the card and checks them, in phases:
    headline streams (2.3 never); the line is printed. Then, each in a
    process of its own at its defaults, `tools.profile_stages` (2.1 and 2.2 once a
    full match), `profile_detect`, `profile_icp` and `profile_multimodel`
-   (2.1 and 2.2 once a frame), and `bigbank_bench --subdivs 0` (1,800
-   templates generated with symmetry pruning off; its prefiltered frame
-   launches 2.1, 2.2 and 2.3 once each, and each of those launches is held
-   against its plain twin on the same inputs). Every tool's own lines are
-   printed; any failure fails the phase;
+   (2.1 and 2.2 once a frame), and `bigbank_bench --subdivs 0` and
+   `--subdivs 0 --dual` (1,800 templates each generated with symmetry
+   pruning off, a line a radius; each prefiltered frame, the dual one on
+   the dual layout F = 128 with a zero depth, launches 2.1, 2.2 and 2.3
+   once each, and each of those launches is held against its plain twin on
+   the same inputs). Every tool's own lines are printed; any failure fails
+   the phase;
 16. the probes P1 and P2: the probe scripts' sequences through the wrappers,
    then each kernel against its plain twin;
 17. a JSON line of per-kernel results (with `device_ms`; the dual shapes'
@@ -218,6 +220,7 @@ version do not count.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -375,29 +378,30 @@ def fitting_cells(lim: torch.Tensor, ch: int, cw: int, weights=None) -> int:
     return int(cells.sum().item())
 
 
-def profile_frames(fn, frames: int = 5) -> tuple[float, float, list]:
-    """torch.profiler over `frames` calls of fn(): device busy ms per frame
-    (the sum of the kernels' and copies' self device time), device
-    operations per frame, and the five largest by self device time as
-    (name, ms per frame)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_frames(fn, frames: int = 5) -> tuple:
+    """torch.profiler over `frames` calls of fn(), in the guarded sessions
+    of tools.timing.device_records: device busy ms per frame (the sum of
+    the kernels' and copies' device time), device operations per frame,
+    and the five largest by device time as (name, ms per frame); (None,
+    None, []), not measured, where no session kept complete records."""
+    from linemod_tpu_torch.tools.timing import device_records
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops = device_records(fn, frames)
+    if ops is None:
+        return None, None, []
+    by_name = collections.Counter()
+    for e in ops:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / frames
+    return sum(by_name.values()), len(ops) / frames, by_name.most_common(5)
 
-    def self_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
-    busy = sum(self_ms(e) for e in ops) / frames
-    count = sum(e.count for e in ops) / frames
-    top = sorted(((e.key[:60], self_ms(e) / frames) for e in ops), key=lambda t: -t[1])[:5]
-    return busy, count, top
+def busy_text(busy, count, span_ms: float, what: str) -> str:
+    """A profile_frames reading as printed: busy ms, operations and the
+    idle share of `span_ms`, or "not measured"."""
+    if busy is None:
+        return f"device busy not measured (the profiler kept no complete session) over the {span_ms:.3f} ms {what}"
+    return (f"device busy {busy:.3f} ms and {count:.0f} device operations a frame; idle {1 - busy / span_ms:.1%} "
+            f"of the {span_ms:.3f} ms {what}")
 
 
 def icp_phase(dev, card: str, cam, settings, bank, props, color, depth) -> dict:
@@ -545,8 +549,7 @@ def icp_phase(dev, card: str, cam, settings, bank, props, color, depth) -> dict:
              f"render {ms['verify']:.3f} ms ({len(renders)} render a frame) (medians, host clock around synchronised "
              f"calls; {card})")
     busy, count, top = profile_frames(lambda: icp.refine_best_many(depth_c, grouped))
-    phase(7, f"ICP leg profile (torch.profiler, 5 frames): device busy {busy:.3f} ms and {count:.0f} device "
-             f"operations a frame; idle {1 - busy / ms['leg']:.1%} of the {ms['leg']:.3f} ms leg; top: "
+    phase(7, "ICP leg profile (torch.profiler, 5 frames): " + busy_text(busy, count, ms["leg"], "leg") + "; top: "
              + ", ".join(f"{name} {t:.3f} ms" for name, t in top))
     return launches
 
@@ -750,29 +753,18 @@ def generate_phase(dev, card: str, cam, settings, props, mesh, color, depth) -> 
     # one radius (130 views) of color generation: its wall time without the
     # profiler, then the device's busy time over it with the profiler
     # tracing the device alone (the host's ~10^5 operator events would
-    # take minutes to collect)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # take minutes to collect), in tools.timing's guarded sessions
     radius = dataclasses.replace(settings, distance_stop=settings.distance_start)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     build_template_bank(mesh, "lagergehaeuse.ply", cam, radius, props, dev)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        build_template_bank(mesh, "lagergehaeuse.ply", cam, radius, props, dev)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def self_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    busy, count = sum(self_ms(e) for e in ops), sum(e.count for e in ops)
-    top = sorted(((e.key[:60], self_ms(e)) for e in ops), key=lambda t: -t[1])[:5]
-    phase(9, f"one radius of color generation (130 views): {wall:.1f} ms wall; profiler: device busy "
-             f"{busy:.1f} ms ({busy / wall:.1%} busy, {1 - busy / wall:.1%} idle) over {count} device "
-             f"operations; top: " + ", ".join(f"{n} {ms:.1f} ms" for n, ms in top) + f" ({card})")
+    busy, count, top = profile_frames(lambda: build_template_bank(mesh, "lagergehaeuse.ply", cam, radius, props, dev),
+                                      frames=1)
+    phase(9, f"one radius of color generation (130 views): {wall:.1f} ms wall; profiler: "
+             + busy_text(busy, count, wall, "radius (host clock)") + "; top: "
+             + ", ".join(f"{n} {ms:.1f} ms" for n, ms in top) + f" ({card})")
     return launches
 
 
@@ -1532,11 +1524,13 @@ def ingest_phase(dev, card: str, det, det_big, det_dual, refs: dict, color, dept
     phase(12, "device programs on the fixture, CUDA events (median of 20, run in the order ABCCBA): "
               + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in prog_ms[k])} ms" for k in prog) + f" ({where})")
     for k, (busy, count, top) in profiles.items():
-        print(f"  {k} profile (torch.profiler, 5 frames): device busy {busy:.3f} ms, {count:.0f} device operations "
-              f"a frame; top: " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+        print(f"  {k} profile (torch.profiler, 5 frames): " + busy_text(busy, count, statistics.median(prog_ms[k]),
+                                                                         "program (CUDA events)")
+              + "; top: " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
     ops = {k: v[1] for k, v in profiles.items()}
-    phase(12, f"the quantizer's share of the color program's launches: {ops['detect_frame'] - ops['detect_frame_quant']:.0f} "
-              f"of {ops['detect_frame']:.0f} device operations a frame ({where})")
+    share = ("not measured" if None in (ops["detect_frame"], ops["detect_frame_quant"]) else
+             f"{ops['detect_frame'] - ops['detect_frame_quant']:.0f} of {ops['detect_frame']:.0f}")
+    phase(12, f"the quantizer's share of the color program's launches: {share} device operations a frame ({where})")
     routes = {"default": det, "host_quant": det_hq, "delta_transport": det_dt}
     route_ms = {k: host_ms(lambda d=d: d.detect(color, depth, 1)) for k, d in routes.items()}
     phase(12, "whole detect by route (host clock, median of 20 / min): "
@@ -1986,21 +1980,37 @@ def tools_phase(dev, card: str, cam, main_vsd: float, main_add: float) -> dict:
     launches["profile_icp"] = timed("profile_icp")["launches_a_frame"]
     for row in timed("profile_multimodel")["multi"]:
         launches[f"profile_multimodel_{row['n_classes']}"] = row["launches_a_frame"]
-    big = timed("bigbank_bench", ("--subdivs", "0"))["configs"][0]
-    launches["bigbank_bench_s0"] = big["launches_a_frame"]
     for tool in ("profile_detect", "profile_icp", "profile_multimodel_1", "profile_multimodel_2",
                  "profile_multimodel_3"):
         check(launches[tool] == ONE_EACH, f"{tool}: 2.1 and 2.2 not once a frame")
-    check(big["planned_templates"] == 1800 and big["n_templates"] > 0 and big["cut_exact"]
-          and big["device_ms_a_frame"] is not None, f"bigbank_bench subdiv 0: {big}")
-    check(big["launches_a_frame"] == {"coarse_scores": 1, "fine_scores": 1, "coarse_max": 1},
-          "bigbank_bench: 2.1, 2.2 and 2.3 not once a frame on the prefiltered cut")
-    # the generated bank's prefiltered frame, each launch against its plain twin
-    bank = TemplateBank.load(os.path.join(OUT, "bigbank_s0.npz"))
-    state = bigbank_bench.bigbank_state(cam, bank, dev)
-    _, kept, err = kept_launches(lambda: detect_frame(state, bigbank_bench.random_frame(cam, dev)))
-    phase(15, f"bigbank_bench subdiv 0 frame: launches {kept}, max|kernel - plain| {err} ({card})")
-    check(kept == big["launches_a_frame"] and max(err.values()) == 0, "bigbank_bench: a kernel != plain")
+    for dual in (False, True):
+        label = "subdiv 0" + (" dual" if dual else "")
+        cache = bigbank_bench.cache_path(OUT, 0, dual)
+        for path in (cache, cache + ".json"):  # generate on the card, never load an earlier run's bank
+            if os.path.exists(path):
+                os.remove(path)
+        rows = timed("bigbank_bench", ("--subdivs", "0") + (("--dual",) if dual else ()))["configs"]
+        (big,) = [r for r in rows if r["subdiv"] == 0 and r["dual_modality"] == dual]
+        key = "bigbank_bench_s0" + ("_dual" if dual else "")
+        launches[key] = big["launches_a_frame"]
+        check(big["planned_templates"] == 1800 and big["n_templates"] > 0 and big["cut_exact"]
+              and big["device_ms_a_frame"] is not None and big["generation_seconds"] is not None,
+              f"bigbank_bench {label}: {big}")
+        check(big["launches_a_frame"] == {"coarse_scores": 1, "fine_scores": 1, "coarse_max": 1},
+              f"bigbank_bench {label}: 2.1, 2.2 and 2.3 not once a frame on the prefiltered cut")
+        # the generated bank's prefiltered frame, each launch against its plain twin
+        bank = TemplateBank.load(cache)
+        state = bigbank_bench.bigbank_state(cam, bank, dev)
+        features = state.off3_coarse.shape[1]
+        check(bank.dual_modality == dual and state.cfg.dual_modality == dual and features == (128 if dual else 64),
+              f"bigbank_bench {label}: the bank's layout (dual {bank.dual_modality}, F = {features})")
+        frame = bigbank_bench.frame_inputs(cam, bank, dev)
+        _, kept, err = kept_launches(lambda: detect_frame(state, *frame))
+        phase(15, f"bigbank_bench {label} frame ({big['n_templates']} templates, F = {features}, t_fine "
+                  f"{state.cfg.t_fine}): launches {kept}, max|kernel - plain| {err} ({card})")
+        check(kept == big["launches_a_frame"] and max(err.values()) == 0, f"bigbank_bench {label}: a kernel != plain")
+        del bank, state, frame
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2479,10 +2489,9 @@ def main() -> int:
 
     def report_profile(n_phase, label, detector, device_ms):
         busy, count, top = profile_frames(frame_program(detector))
-        phase(n_phase, f"{label} profile (torch.profiler, 5 frames): device busy {busy:.3f} ms "
-                       f"and {count:.0f} device operations per frame; idle {1 - busy / device_ms:.1%} "
-                       f"of the {device_ms:.3f} ms detect_frame; top: "
-                       + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+        phase(n_phase, f"{label} profile (torch.profiler, 5 frames): " + busy_text(busy, count, device_ms,
+                                                                                  "detect_frame")
+                       + "; top: " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
 
     frame = torch.from_numpy(color_c).to(dev)
     med = request_times(det, REPS)

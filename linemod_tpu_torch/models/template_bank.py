@@ -6,11 +6,12 @@ class id and the modality flag; both packages read each other's. The bank
 stays host numpy: `ops/matching` derives the device tensors from it.
 
 Generation renders every template view (radius outermost, then viewpoint,
-then in-plane angle) on the device, quantizes and cuts its candidates a
-radius at a time, selects every view's features in one scan, and assembles
-the records on the host. A view is the object rendered from the template's
-own pose (the camera rolled by the in-plane angle), which keeps pose and
-pixels consistent by construction.
+then in-plane angle) on the device a radius at a time: it quantizes and
+cuts the radius's candidates a chunk of views at a time, selects the
+radius's features in one scan, takes each view's p20 depth a chunk at a
+time, and assembles the records on the host. A view is the object rendered
+from the template's own pose (the camera rolled by the in-plane angle),
+which keeps pose and pixels consistent by construction.
 """
 
 from __future__ import annotations
@@ -33,9 +34,14 @@ MAX_FEATURES = 64  # 63 features padded to 64
 HULL_VERTS = 32
 BG_DEPTH = 65535.0
 CROP = 320  # the template render window (object centred)
-# views quantized and cut at once: the quantizer's float32 temporaries of
-# the 1,620 views of a radius at subdivision 2 outgrow an 80 GB card
+# views rendered, quantized, cut and reduced to p20 depths at once: the
+# quantizer's float32 temporaries of the 1,620 views of a radius at
+# subdivision 2 outgrow an 80 GB card
 VIEW_CHUNK = 256
+# views gathered, whole radii at a time, before one scan selects their
+# features: a scan's ~2,048 dependent steps cost about the same whatever
+# its row count, so radii of a few hundred views share one
+SCAN_VIEWS = 1024
 TIMED_PHASES = ("render", "quantize", "cut", "scan", "assemble")
 # the bank's arrays, in the order of the npz
 FIELDS = ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull")
@@ -318,15 +324,24 @@ def build_template_bank(
 ) -> TemplateBank:
     """Offline template generation on `device`: radii x viewpoints x
     in-plane angles, each view rendered from its pose in a CROP x CROP
-    window centred in the camera image, its candidates cut a radius at a
-    time, and every view's features selected in one scan.
+    window centred in the camera image.
 
-    `progress(radius, views)` is called after each radius is rendered and
-    cut, with the count of views so far. `timings`, where given, gains the
-    seconds spent in each of TIMED_PHASES: "render", "quantize", "cut" (to
-    512 candidates a map), "scan" (the selection) and "assemble" (the box
-    statistics and the host records); the phases are timed on the host
-    clock after a device sync each."""
+    One radius at a time: its views are rendered, quantized and cut
+    VIEW_CHUNK at a time into the radius's depth stack (in host memory)
+    and candidate lists. Once the radii waiting hold SCAN_VIEWS views (or
+    the last radius is cut), their rows take one scan, and each radius's
+    feature boxes and p20 depths are taken a chunk at a time before its
+    records are assembled on the host. Every step is per view, so the rows
+    are those of one batch; the device holds one chunk's renders and maps
+    and the candidates of one radius, or of radii of SCAN_VIEWS views, at
+    most.
+
+    `progress(radius, templates)` is called after each radius's records, with the
+    count of templates kept so far (JAX's callback). `timings`, where
+    given, gains the seconds spent in each of TIMED_PHASES: "render",
+    "quantize", "cut" (to 512 candidates a map), "scan" (the selection) and
+    "assemble" (the box statistics and the host records); the phases are
+    timed on the host clock after a device sync each."""
     dev = torch.device(device)
     marr = mesh_to_arrays(mesh, dev)
     dual = not settings.only_color_modality
@@ -343,66 +358,72 @@ def build_template_bank(
         clock[key] += t - t0
         return t
 
-    quats, zs, depths, cands = [], [], [], []
-    for radius in settings.radii:
+    records = {k: [] for k in FIELDS + DUAL_FIELDS}
+    waiting = []  # (radius, poses, depth, candidates) of the radii not yet scanned
+    for r_i, radius in enumerate(settings.radii):
         vps = camera_view_points(
             float(radius), settings.subdivisions, props.rotationally_symmetrical, props.planes_of_symmetry
         )
         q = np.array([template_view_pose(vp, a) for vp in vps for a in angles], np.float64)
-        t0 = time.perf_counter()
-        views = [
-            render(
-                marr, quat_to_mat(qi).astype(np.float32), np.array([0.0, 0.0, radius], np.float32),
-                cam.fx, cam.fy, cam.width / 2.0, cam.height / 2.0, width=CROP, height=CROP,
-                with_color=True, origin=(ox, oy), focal_reciprocal=True,
-            )
-            for qi in q
-        ]
-        depth = torch.stack([d for d, _ in views])
-        color = torch.stack([c for _, c in views]) * 255.0
-        t0 = lap("render", t0)
-        # every step is per view, so a radius quantized and cut a chunk of
-        # views at a time gives the same rows as in one batch
-        chunks = []
-        for v0 in range(0, len(q), VIEW_CHUNK):
-            maps = quantize_views(color[v0 : v0 + VIEW_CHUNK], depth[v0 : v0 + VIEW_CHUNK], dual)
+        n = len(q)
+        # the radius's depth waits for its scan in host memory (pinned: one
+        # copy a chunk each way), so the device's peak is a chunk's whatever
+        # the radius's view count
+        depth = torch.empty((n, CROP, CROP), dtype=torch.float32, pin_memory=dev.type == "cuda")
+        cands = []
+        for v0 in range(0, n, VIEW_CHUNK):
+            t0 = time.perf_counter()
+            qc = q[v0 : v0 + VIEW_CHUNK]
+            chunk_depth = torch.empty((len(qc), CROP, CROP), dtype=torch.float32, device=dev)
+            color = torch.empty((len(qc), CROP, CROP, 3), dtype=torch.float32, device=dev)
+            for j, qi in enumerate(qc):
+                chunk_depth[j], color[j] = render(
+                    marr, quat_to_mat(qi).astype(np.float32), np.array([0.0, 0.0, radius], np.float32),
+                    cam.fx, cam.fy, cam.width / 2.0, cam.height / 2.0, width=CROP, height=CROP,
+                    with_color=True, origin=(ox, oy), focal_reciprocal=True,
+                )
+            color *= 255.0
+            depth[v0 : v0 + len(qc)] = chunk_depth
+            t0 = lap("render", t0)
+            maps = quantize_views(color, chunk_depth, dual)
+            del color, chunk_depth
             t0 = lap("quantize", t0)
-            chunks.append({k: cut_candidates(*m) for k, m in maps.items()})
-            t0 = lap("cut", t0)
-        cands.append({k: concat_candidates([c[k] for c in chunks]) for k in chunks[0]})
-        del views, color, maps, chunks
-        quats.append(q)
-        zs.append(np.full(len(q), radius, np.float32))
-        depths.append(depth)
-        if progress is not None:
-            progress(float(radius), sum(len(a) for a in quats))
-
-    t0 = time.perf_counter()
-    keys = list(cands[0])
-    counts = [len(a) for a in quats]
-    sel = scan_select(concat_candidates([c[k] for k in keys for c in cands]))
-    t0 = lap("scan", t0)
-    # rows are key-major, then radius, then view
-    n = sum(counts)
-    sel = {k: tuple(a[j * n : (j + 1) * n] for a in sel) for j, k in enumerate(keys)}
-    box = _feature_box(sel, dual)
-    p20 = torch.cat([
-        _p20(d, tuple(t[s : s + len(d)] for t in box))
-        for d, s in zip(depths, np.cumsum([0] + counts[:-1]))
-    ])
-    f = {k: tuple(a.cpu().numpy() for a in v) for k, v in sel.items()}
-    p20 = p20.cpu().numpy()
-    quats, zs = np.concatenate(quats), np.concatenate(zs)
-    records = {k: [] for k in FIELDS + DUAL_FIELDS}
-    for i in range(n):
-        rec = _assemble_template(f, p20, i, ox, oy, dual)
-        if rec is None:
+            cands.append({k: cut_candidates(*m) for k, m in maps.items()})
+            del maps
+            lap("cut", t0)
+        waiting.append((radius, q, depth, cands))
+        if sum(len(w[1]) for w in waiting) < SCAN_VIEWS and r_i + 1 < len(settings.radii):
             continue
-        for k, v in rec.items():
-            records[k].append(v)
-        records["quat"].append(quats[i].astype(np.float32))
-        records["z"].append(zs[i])
-    lap("assemble", t0)
+        t0 = time.perf_counter()
+        keys = list(cands[0])
+        # rows are radius-major, then key, then view
+        sel = scan_select(concat_candidates([c[k] for *_, cs in waiting for k in keys for c in cs]))
+        t0 = lap("scan", t0)
+        row = 0
+        for radius, q, depth, cs in waiting:
+            n = len(q)
+            rsel = {k: tuple(a[row + j * n : row + (j + 1) * n] for a in sel) for j, k in enumerate(keys)}
+            row += len(keys) * n
+            box = _feature_box(rsel, dual)
+            p20 = torch.cat([
+                _p20(depth[v0 : v0 + VIEW_CHUNK].to(dev), tuple(t[v0 : v0 + VIEW_CHUNK] for t in box))
+                for v0 in range(0, n, VIEW_CHUNK)
+            ]).cpu().numpy()
+            f = {k: tuple(a.cpu().numpy() for a in v) for k, v in rsel.items()}
+            del rsel, box
+            for i in range(n):
+                rec = _assemble_template(f, p20, i, ox, oy, dual)
+                if rec is None:
+                    continue
+                for k, v in rec.items():
+                    records[k].append(v)
+                records["quat"].append(q[i].astype(np.float32))
+                records["z"].append(np.float32(radius))
+            t0 = lap("assemble", t0)
+            if progress is not None:
+                progress(float(radius), len(records["z"]))
+        del sel, cands, cs, depth
+        waiting = []
     if timings is not None:
         for k, v in clock.items():
             timings[k] = timings.get(k, 0.0) + v

@@ -44,16 +44,15 @@ class TemplateGenerator:
                 continue
             t0 = time.time()
             model_path = os.path.join(self.settings.model_folder, model_file)
-            done = [0]
 
-            def progress(radius, views):
-                done[0] += 1
+            def progress(radius, count):
                 if verbose:
-                    pct = int(100 * done[0] / n_radii)
+                    done = (radius - self.settings.distance_start) // self.settings.distance_step + 1
+                    pct = int(100 * done / n_radii)
                     bar = "=" * (pct // 2) + ">"
                     sys.stdout.write(
-                        f"\r[{bar:<51}] {pct:3d}% {model_file} (radius {radius:.0f} mm, "
-                        f"{views} views, {time.time() - t0:.0f}s)"
+                        f"\r[{bar:<51}] {pct:3d}% {model_file} ({count} templates, "
+                        f"{time.time() - t0:.0f}s)"
                     )
                     sys.stdout.flush()
 

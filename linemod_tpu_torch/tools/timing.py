@@ -10,10 +10,13 @@
   the median over calls of the device time of each call's kernels and
   copies (the records are split into calls by order, so every call must
   launch the same number of device operations). `device_profile` also
-  gives the device operations a call; it brackets the calls with guard
-  launches, since a session drops records at its ends, tries another
-  session where records are missing, and gives None (not measured) after
-  ATTEMPTS.
+  gives the device operations a call. A session may lose the records of
+  the first kernels launched in it (two to four, more often once its
+  process has idled), never a later one alone, and a host wait before
+  them does not prevent it (`tools/profiler_sessions`, PERF.md §7). So
+  `device_profile` (through `device_records`) launches guard kernels
+  before and after the calls, tries another session where records are
+  missing, and gives None (not measured) after ATTEMPTS.
 - `host_ms(fn, reps, device)`: the host clock around synchronised calls;
   `profile_call` the profiler's numbers on the card, the host clock's on
   the CPU.
@@ -63,10 +66,11 @@ def event_ms(fn, reps: int = 50) -> float:
 
 
 # sleep kernels of one cycle launched before and after the profiled calls:
-# a profiler session drops device records, more the more sessions its
-# process has run (measured on the H100 with torch 2.11: about one more a
-# session at first; in chip_smoke.py's last phase all 50 records of a
-# one-launch call), and these absorb a loss at the session's ends
+# the loss at a session's start falls on them. tools/profiler_sessions on
+# the H100, 20 launches a session: sessions with them kept all 20 of the
+# calls' records in 10 of 10 (5 of them after the process idled 30 s),
+# where bare ones lost the first two in 5 of 5 after the idle and sessions
+# with a 50 ms host wait instead lost them in 3 of 5
 GUARD_LAUNCHES = 1024
 # sessions tried before a call is given up as not measured: now and then
 # a session also loses records in its middle (2,257 of a dual frame's
@@ -74,17 +78,19 @@ GUARD_LAUNCHES = 1024
 ATTEMPTS = 3
 
 
-def _complete_records(fn, reps: int) -> list | None:
-    """The device records of `reps` fn() calls in one profiler session,
-    between two runs of GUARD_LAUNCHES sleep kernels; None where the calls
-    left no record, either run of guards left none, or the calls' records
-    do not split evenly into the calls (records may be missing)."""
+def _session_records(fn, reps: int, wait_s: float = 0.0) -> tuple[list, list]:
+    """One profiler session of `reps` fn() calls between two runs of
+    GUARD_LAUNCHES sleep kernels (after a host wait of `wait_s`, which
+    tools/profiler_sessions compares): the calls' device records and the
+    guards' start times, both in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: the host's records add nothing here and make
     # reading a session of a few thousand launches take seconds
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if wait_s:
+            time.sleep(wait_s)
         for _ in range(GUARD_LAUNCHES):
             torch.cuda._sleep(1)
         for _ in range(reps):
@@ -98,28 +104,41 @@ def _complete_records(fn, reps: int) -> list | None:
     )
     ops = [e for e in records if "spin_kernel" not in e.name]
     guards = [e.time_range.start for e in records if "spin_kernel" in e.name]
+    return ops, guards
+
+
+def _complete(ops: list, guards: list, reps: int) -> bool:
+    """Whether a session's records pass the checks: the calls left a
+    record, a guard's record stands on each side of theirs, and they split
+    evenly into the `reps` calls (records may be missing otherwise)."""
     if not ops or len(ops) % reps:
-        return None
-    if not any(t < ops[0].time_range.start for t in guards) or not any(t > ops[-1].time_range.start for t in guards):
-        return None
-    return ops
+        return False
+    return any(t < ops[0].time_range.start for t in guards) and any(t > ops[-1].time_range.start for t in guards)
+
+
+def device_records(fn, reps: int = 50) -> list | None:
+    """The device records of `reps` fn() calls, after a warm-up: those of
+    the first of ATTEMPTS sessions (`_session_records`) that pass the
+    checks (`_complete`), else None, not measured."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        ops, guards = _session_records(fn, reps)
+        if _complete(ops, guards, reps):
+            return ops
+    return None
 
 
 def device_profile(fn, reps: int = 50) -> tuple[float | None, float | None]:
     """(median device ms of one fn() call, device operations a call) from
-    the profiler's device records of `reps` calls, after a warm-up: the
-    first of ATTEMPTS sessions whose records are complete
-    (`_complete_records`), else (None, None), not measured."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(ATTEMPTS):
-        ops = _complete_records(fn, reps)
-        if ops is not None:
-            per = len(ops) // reps
-            return statistics.median(
-                sum(e.time_range.elapsed_us() for e in ops[i * per : (i + 1) * per]) for i in range(reps)
-            ) / 1e3, float(per)
-    return None, None
+    `device_records` of `reps` calls, or (None, None), not measured."""
+    ops = device_records(fn, reps)
+    if ops is None:
+        return None, None
+    per = len(ops) // reps
+    return statistics.median(
+        sum(e.time_range.elapsed_us() for e in ops[i * per : (i + 1) * per]) for i in range(reps)
+    ) / 1e3, float(per)
 
 
 def device_ms(fn, reps: int = 50) -> float | None:

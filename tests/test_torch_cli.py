@@ -431,12 +431,15 @@ def test_generate_equals_jax(tmp_path):
                      "distance stop": 600, "icosahedron subdivisions": 0, "in plane rotation starting angle": -45,
                      "in plane rotation stopping angle": 45, "in plane rotation angle step": 45})
     write_yamlcv(str(tmp_path / "settings.yml"), settings)
-    banks = {}
+    banks, printed = {}, {}
     for which, main, extra in (("jax", jax_main, []), ("port", port_main, ["--device", "cpu"])):
-        rc, _, _ = run_cli(main, ["generate", "--settings", str(tmp_path / "settings.yml"),
-                                  "--banks", str(tmp_path / which)] + extra, cwd=str(tmp_path))
+        rc, out, _ = run_cli(main, ["generate", "--settings", str(tmp_path / "settings.yml"),
+                                    "--banks", str(tmp_path / which)] + extra, cwd=str(tmp_path))
         assert rc == 0
         banks[which] = TemplateBank.load(str(tmp_path / which / "cube.npz"))
+        # the progress line and the summary, wall-clock seconds and the bank folder masked
+        printed[which] = re.sub(r"\b[\d.]+s\b", "<s>", out.replace(str(tmp_path / which), "<banks>"))
+    assert printed["port"] == printed["jax"] and "(9 templates, <s>)" in printed["port"]
     got, want = banks["port"], banks["jax"]
     assert got.num_templates == want.num_templates == 9 and got.class_id == want.class_id == "cube.obj"
     for f in ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull"):

@@ -350,28 +350,87 @@ BANK_CASES = {
     "octa": ("octa", dict(), (1.0, 1.0, 1.0)),
     # no symmetry: all 12 icosphere viewpoints, at one in-plane angle
     "tetra_sphere": ("tetra", dict(angle_start=20, angle_stop=20), (0.0, 0.0, 0.0)),
+    # three radii: the rows radius by radius, each radius scanned alone
+    "cube_radii": ("cube", dict(distance_start=550, distance_stop=650), (1.0, 1.0, 1.0)),
+    "cube_dual_radii": ("cube", dict(distance_start=550, distance_stop=650, only_color_modality=False),
+                        (1.0, 1.0, 1.0)),
 }
+_JAX_BANKS = {}
+
+
+def _case(case):
+    """(mesh, class name, JAX's cam, settings and properties) of a case."""
+    from linemod_tpu.config import ModelProperties
+
+    name, kw, planes = BANK_CASES[case]
+    return _mesh(name), name, _cam(), _settings(**kw), ModelProperties(planes_of_symmetry=planes)
+
+
+def _jax_bank(case):
+    """JAX's bank of a case and its progress calls, built once a module."""
+    from linemod_tpu.models.template_bank import build_template_bank as j_build
+
+    if case not in _JAX_BANKS:
+        mesh, name, cam, settings, props = _case(case)
+        calls = []
+        bank = j_build(mesh, name, cam, settings, props, progress=lambda r, n: calls.append((r, n)))
+        _JAX_BANKS[case] = bank, calls
+    return _JAX_BANKS[case]
 
 
 @pytest.mark.parametrize("case", list(BANK_CASES))
 def test_bank_equals_jax(case):
-    from linemod_tpu.config import ModelProperties
-    from linemod_tpu.models.template_bank import build_template_bank as j_build
     from linemod_tpu_torch.models.template_bank import build_template_bank
 
-    name, kw, planes = BANK_CASES[case]
-    cam, settings, props = _cam(), _settings(**kw), ModelProperties(planes_of_symmetry=planes)
-    mesh = _mesh(name)
-    want = j_build(mesh, name, cam, settings, props)
+    mesh, name, cam, settings, props = _case(case)
+    want, want_calls = _jax_bank(case)
     timings, seen = {}, []
     got = build_template_bank(port_mesh(mesh), name, *port_config(cam, settings, props), "cpu",
                               progress=lambda r, n: seen.append((r, n)), timings=timings)
     assert got.class_id == name
     assert_banks_equal(got, want)
-    views = len(settings.in_plane_angles) * (12 if planes == (0.0, 0.0, 0.0) else 3)
-    assert seen == [(float(r), views * (i + 1)) for i, r in enumerate(settings.radii)]
+    assert seen == want_calls and len(seen) == len(settings.radii)
     assert set(timings) == {"render", "quantize", "cut", "scan", "assemble"}
     assert all(t >= 0.0 for t in timings.values())
+
+
+@pytest.mark.parametrize("radii_a_scan", [1, 2])
+@pytest.mark.parametrize("case", ["cube_radii", "cube_dual_radii"])
+def test_bank_scans_a_radius_and_takes_p20_a_chunk(case, radii_a_scan, monkeypatch):
+    """Generation scans whole radii, each once: with SCAN_VIEWS of one
+    radius's views, each radius alone (keys x its views); with two radii's,
+    the first two together and the last alone. It never hands `_p20` more
+    than VIEW_CHUNK views, and reports progress as JAX does: (radius,
+    templates kept so far)."""
+    from linemod_tpu_torch.models import template_bank
+
+    scanned, p20_views = [], []
+    scan, p20 = template_bank.scan_select, template_bank._p20
+
+    def spy_scan(c, *args):
+        scanned.append(c.x.shape[0])
+        return scan(c, *args)
+
+    def spy_p20(depth, box):
+        p20_views.append(depth.shape[0])
+        return p20(depth, box)
+
+    mesh, name, cam, settings, props = _case(case)
+    views = 3 * len(settings.in_plane_angles)  # the cube's 3 viewpoints a radius
+    monkeypatch.setattr(template_bank, "VIEW_CHUNK", 5)
+    monkeypatch.setattr(template_bank, "SCAN_VIEWS", radii_a_scan * views)
+    monkeypatch.setattr(template_bank, "scan_select", spy_scan)
+    monkeypatch.setattr(template_bank, "_p20", spy_p20)
+    seen = []
+    got = template_bank.build_template_bank(port_mesh(mesh), name, *port_config(cam, settings, props), "cpu",
+                                            progress=lambda r, n: seen.append((r, n)))
+    want, want_calls = _jax_bank(case)
+    assert_banks_equal(got, want)
+    keys = 2 if settings.only_color_modality else 4
+    assert len(settings.radii) == 3
+    assert scanned == ([keys * views] * 3 if radii_a_scan == 1 else [2 * keys * views, keys * views])
+    assert p20_views == [5, views - 5] * 3
+    assert seen == want_calls and [r for r, _ in seen] == [550.0, 600.0, 650.0]
 
 
 def test_template_generator_writes_and_skips(tmp_path):
@@ -423,18 +482,15 @@ if __name__ == "__main__":
     main()
 
 
-@pytest.mark.parametrize("case", ["tetra_sphere", "cube_dual"])
+@pytest.mark.parametrize("case", ["tetra_sphere", "cube_dual", "cube_radii", "cube_dual_radii"])
 def test_bank_in_view_chunks_equals_jax(case, monkeypatch):
-    """A radius quantized and cut in chunks of views (5 of its 12 or 9
-    here; the card's generation takes 256 at a time) gives JAX's bank."""
-    from linemod_tpu.config import ModelProperties
-    from linemod_tpu.models.template_bank import build_template_bank as j_build
+    """A radius rendered, quantized, cut and reduced to p20 depths in
+    chunks of views (5 of its 12 or 9 here; the card's generation takes 256
+    at a time) gives JAX's bank."""
     from linemod_tpu_torch.models import template_bank
 
     monkeypatch.setattr(template_bank, "VIEW_CHUNK", 5)
-    name, kw, planes = BANK_CASES[case]
-    cam, settings, props = _cam(), _settings(**kw), ModelProperties(planes_of_symmetry=planes)
-    mesh = _mesh(name)
+    mesh, name, cam, settings, props = _case(case)
     got = template_bank.build_template_bank(port_mesh(mesh), name, *port_config(cam, settings, props), "cpu")
     assert got.num_templates > template_bank.VIEW_CHUNK
-    assert_banks_equal(got, j_build(mesh, name, cam, settings, props))
+    assert_banks_equal(got, _jax_bank(case)[0])
