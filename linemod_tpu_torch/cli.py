@@ -33,6 +33,7 @@ Color frames are PNG or JPEG, told apart by their leading bytes as
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -101,7 +102,7 @@ def cmd_detect(args):
     from .utils.draw import draw_coordinate_system, draw_features
     from .utils.mesh_io import load_mesh
     from .utils.png import write_png
-    from .utils.profiling import StageTimer, maybe_stage
+    from .utils.profiling import RECORDER, StageTimer, maybe_stage, recording
 
     dev = device_from_flag(args.device)
     loaded = _load_bank(args)
@@ -118,7 +119,8 @@ def cmd_detect(args):
     )
     det = PoseDetection(bank, cam, settings, props, dev, mesh=mesh, icp=icp)
     bench = Benchmark(mesh, cam, dev) if args.benchmark else None
-    # sync=False: wall-clock stages; detect.fetch waits for the device
+    # sync=False: wall-clock stages, with the program's spans of each frame
+    # (frame.submit, frame.collect and their parts) folded in
     timer = StageTimer(sync=False) if args.profile else None
 
     frames = _frame_source(args.images, args.depths, cam.width, cam.height)
@@ -133,19 +135,10 @@ def cmd_detect(args):
         color, depth = frame
         t0 = time.time()
         dbg = DetectionDebug() if args.display else None
-        with maybe_stage(timer, "detect"):
-            if timer:
-                # the host's enqueue, the wait for the device and the copy of
-                # the packed candidates, and the host half (grouping, checks,
-                # pose math)
-                with maybe_stage(timer, "detect.submit"):
-                    handle = det.detect_submit(color, depth)
-                with maybe_stage(timer, "detect.fetch"):
-                    handle = (handle[0].cpu(), handle[1], handle[2])
-                with maybe_stage(timer, "detect.host_post"):
-                    poses = det.detect_collect(handle, args.num_objects, debug=dbg)
-            else:
-                poses = det.detect(color, depth, args.num_objects, debug=dbg)
+        with maybe_stage(timer, "detect"), recording() if timer else contextlib.nullcontext():
+            poses = det.detect(color, depth, args.num_objects, debug=dbg)
+        if timer:
+            timer.add_spans(RECORDER.take())
         times.append(time.time() - t0)
         msg = f"frame {i}: {len(poses)} pose(s) in {times[-1]*1000:.1f} ms"
         if poses and bench is not None:

@@ -52,7 +52,7 @@ def detect_frame(state: MatchState, color: torch.Tensor, depth: torch.Tensor | N
     a color-only one; both principal-point recentred, on the state's device.
     Returns the packed [top_k, 5] float32 candidates, sorted by similarity
     ([top_k + 1, 5] on the prefiltered cut)."""
-    return _pack(match_templates(state, color.float(), None if depth is None else depth.float()))
+    return match_templates(state, color.float(), None if depth is None else depth.float(), pack=_pack)
 
 
 def detect_frame_dual(state: MatchState, color: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
@@ -74,7 +74,7 @@ def detect_frame_quant(state: MatchState, quant0: torch.Tensor, quant1: torch.Te
     orientation maps: quant0 [H, W] and quant1 [H/2, W/2] uint8 one-hot
     (utils/native.quantize_frame of the recentred frame), on the state's
     device."""
-    return _pack(match_templates_quant(state, quant0, quant1))
+    return match_templates_quant(state, quant0, quant1, pack=_pack)
 
 
 def delta_encode_host(color_bgr: np.ndarray) -> np.ndarray:
@@ -99,7 +99,7 @@ def detect_frame_delta(state: MatchState, delta: torch.Tensor, depth: torch.Tens
     """detect_frame of the frame that `delta` ([3, H, W] uint8, from
     delta_encode_host, on the state's device) encodes; `depth` as for
     detect_frame."""
-    return _pack(match_templates(state, _delta_decode(delta), None if depth is None else depth.float()))
+    return match_templates(state, _delta_decode(delta), None if depth is None else depth.float(), pack=_pack)
 
 
 def detect_frame_dual_delta(state: MatchState, delta: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,10 @@ above-threshold entries as the reference's guard does and selects, on the
 device, between the re-ranked fast pass and the exact cut, both of which
 are the canonical exact cut here.
 
+Spans (utils/profiling) mark the program's host enqueue: `match.quantize`
+and `match.planes` once a level, `match.cut`, `match.refine` and
+`match.pack`.
+
 The outputs equal the JAX reference's: integers exactly, similarities bit
 for bit (the percent scale is computed in the same float32 order).
 """
@@ -52,6 +56,7 @@ import torch
 
 from .extract import downsample2
 from .gradients import quantize_color_gradients
+from ..utils.profiling import span
 from .normals import quantize_normals
 from .similarity_cuda import (
     CoarseMaxPlan,
@@ -257,44 +262,48 @@ def _planes_from_quant(quants, t: int, max_cells: int) -> torch.Tensor:
     hp = h - h % t
     wp = w - w % t
     _, _, rows, stride = linear_plane_shape(hp, wp, t, max_cells)
-    planes = [
-        linearized_response_planes(q[:hp, :wp], t, max_cells).reshape(-1, rows, stride)
-        for q in quants
-    ]
-    planes.append(planes[0].new_zeros((1, rows, stride)))
-    return torch.cat(planes, dim=0)
+    with span("match.planes"):
+        planes = [
+            linearized_response_planes(q[:hp, :wp], t, max_cells).reshape(-1, rows, stride)
+            for q in quants
+        ]
+        planes.append(planes[0].new_zeros((1, rows, stride)))
+        return torch.cat(planes, dim=0)
 
 
-def _planes_3d(color: torch.Tensor, t: int, max_cells: int, depth=None) -> torch.Tensor:
+def _planes_3d(color: torch.Tensor, t: int, max_cells: int, depth=None, half: bool = False) -> torch.Tensor:
     """Quantize one pyramid level -> its linearized planes: the color
-    modality's, then (given the depth, in dual mode) the normal modality's."""
-    quants = [quantize_color_gradients(color)[0]]
-    if depth is not None:
-        quants.append(quantize_normals(depth)[0])
+    modality's, then (given the depth, in dual mode) the normal modality's.
+    `half`: the level of the frame downsampled 2x (the coarse level; its
+    depth is strided, not averaged)."""
+    with span("match.quantize"):
+        if half:
+            color = downsample2(color)
+            depth = None if depth is None else depth[::2, ::2]
+        quants = [quantize_color_gradients(color)[0]]
+        if depth is not None:
+            quants.append(quantize_normals(depth)[0])
     return _planes_from_quant(quants, t, max_cells)
 
 
-def match_templates(state: MatchState, color: torch.Tensor, depth=None) -> dict:
+def match_templates(state: MatchState, color: torch.Tensor, depth=None, pack=None):
     """Coarse-to-fine match of the whole bank against one frame.
 
     color: [H, W, 3] float 0..255 BGR; depth: [H, W] float mm, needed in
     dual mode and ignored otherwise; both on the state's device. Returns a
     dict of [top_k] tensors (template_id, x, y: level-0 bbox top-left
-    pixels, similarity in percent, valid), sorted by similarity descending."""
+    pixels, similarity in percent, valid), sorted by similarity descending;
+    with `pack` (detect_core._pack), pack of that dict."""
     cfg = state.cfg
     if cfg.dual_modality and depth is None:
         raise ValueError("dual-modality matching needs the depth image")
     depth = depth if cfg.dual_modality else None
     fine_planes = _planes_3d(color, cfg.t_fine, state.max_cells_fine, depth)
-    # the coarse level's depth is strided, not averaged
-    coarse_planes = _planes_3d(
-        downsample2(color), cfg.t_coarse, state.max_cells_coarse,
-        None if depth is None else depth[::2, ::2],
-    )
-    return _match_with_planes(state, fine_planes, coarse_planes)
+    coarse_planes = _planes_3d(color, cfg.t_coarse, state.max_cells_coarse, depth, half=True)
+    return _match_with_planes(state, fine_planes, coarse_planes, pack)
 
 
-def match_templates_quant(state: MatchState, quant0: torch.Tensor, quant1: torch.Tensor) -> dict:
+def match_templates_quant(state: MatchState, quant0: torch.Tensor, quant1: torch.Tensor, pack=None):
     """match_templates from the quantized orientation maps of both pyramid
     levels (the host-quantize route, utils/native.quantize_frame):
     quant0 [H, W] and quant1 [H/2, W/2] uint8 one-hot, on the state's
@@ -304,7 +313,7 @@ def match_templates_quant(state: MatchState, quant0: torch.Tensor, quant1: torch
         raise ValueError("match_templates_quant takes a color-only state; a dual state needs the depth")
     fine_planes = _planes_from_quant([quant0], cfg.t_fine, state.max_cells_fine)
     coarse_planes = _planes_from_quant([quant1], cfg.t_coarse, state.max_cells_coarse)
-    return _match_with_planes(state, fine_planes, coarse_planes)
+    return _match_with_planes(state, fine_planes, coarse_planes, pack)
 
 
 def coarse_similarity(state: MatchState, coarse_planes: torch.Tensor) -> torch.Tensor:
@@ -497,7 +506,9 @@ def finalize_matches(cfg: MatchConfig, cand_t, sim, x, y, top_sim) -> dict:
     }
 
 
-def _match_with_planes(state: MatchState, fine_planes, coarse_planes) -> dict:
+def _match_with_planes(state: MatchState, fine_planes, coarse_planes, pack=None):
+    """The cut, the refine and finalize_matches on a frame's planes; `pack`,
+    when given, runs on the match dict inside the `match.pack` span."""
     if tuple(fine_planes.shape[1:]) != tuple(state.fine_shape[2:]) or tuple(
         coarse_planes.shape[1:]
     ) != tuple(state.coarse_shape[2:]):
@@ -508,20 +519,23 @@ def _match_with_planes(state: MatchState, fine_planes, coarse_planes) -> dict:
     cfg = state.cfg
     n = state.off_coarse.shape[0]
     cut_exact = None
-    if takes_prefilter(cfg, n):
-        top_sim, cand_t, cand_gy, cand_gx, cut_exact = candidate_cut_prefilter(
-            state, coarse_planes, cfg.top_k
-        )
-    elif cfg.scan_chunk and n > cfg.scan_chunk:
-        top_sim, cand_t, cand_gy, cand_gx = candidate_cut_streaming(
-            state, coarse_planes, cfg.top_k
-        )
-    else:
-        sim_c = coarse_similarity(state, coarse_planes)
-        top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k, cfg)
-    sim, x, y = fine_refine(state, fine_planes, cand_t, cand_gy, cand_gx)
-    out = finalize_matches(cfg, cand_t, sim, x, y, top_sim)
-    if cut_exact is not None:
-        # the prefiltered cut's proof; detect_core packs it as an extra row
-        out["cut_exact"] = cut_exact
-    return out
+    with span("match.cut"):
+        if takes_prefilter(cfg, n):
+            top_sim, cand_t, cand_gy, cand_gx, cut_exact = candidate_cut_prefilter(
+                state, coarse_planes, cfg.top_k
+            )
+        elif cfg.scan_chunk and n > cfg.scan_chunk:
+            top_sim, cand_t, cand_gy, cand_gx = candidate_cut_streaming(
+                state, coarse_planes, cfg.top_k
+            )
+        else:
+            sim_c = coarse_similarity(state, coarse_planes)
+            top_sim, cand_t, cand_gy, cand_gx = candidate_cut(sim_c, state.coarse_shape[1], cfg.top_k, cfg)
+    with span("match.refine"):
+        sim, x, y = fine_refine(state, fine_planes, cand_t, cand_gy, cand_gx)
+    with span("match.pack"):
+        out = finalize_matches(cfg, cand_t, sim, x, y, top_sim)
+        if cut_exact is not None:
+            # the prefiltered cut's proof; detect_core packs it as an extra row
+            out["cut_exact"] = cut_exact
+        return out if pack is None else pack(out)

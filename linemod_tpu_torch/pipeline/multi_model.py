@@ -22,6 +22,7 @@ import torch
 from ..config import CameraParameters, ModelProperties, TemplateSettings
 from ..models.template_bank import TemplateBank, _pad_bank, concat_banks
 from ..ops.matching import build_match_state
+from ..utils.profiling import frame_span, last_frame, span
 from .pose_detection import (
     DetectionDebug,
     PoseDetection,
@@ -30,6 +31,7 @@ from .pose_detection import (
     _pipelined,
     group_candidate_poses,
     make_match_config,
+    framed,
     resolve_prefilter_packed,
 )
 
@@ -102,7 +104,8 @@ class MultiModelPoseDetection:
     ) -> dict[str, list]:
         """Detect every class in one frame: {class_id: [ObjectPose, ...]},
         empty lists included."""
-        return self._collect(self.detect_submit(color, depth), self.class_ids, num_objects, debug)
+        handle = self.detect_submit(color, depth)
+        return self._collect(handle, self.class_ids, num_objects, debug, last_frame())
 
     def detect(
         self, class_id: str, color: np.ndarray, depth: np.ndarray, num_objects: int = 1,
@@ -110,9 +113,9 @@ class MultiModelPoseDetection:
     ) -> list:
         """Detect one class (the reference's per-frame call with a model
         name): the scan covers every class, the post-processing this one."""
+        handle = self.detect_submit(color, depth)
         out = self._collect(
-            self.detect_submit(color, depth), [class_id], num_objects,
-            None if debug is None else {class_id: debug},
+            handle, [class_id], num_objects, None if debug is None else {class_id: debug}, last_frame(),
         )
         return out[class_id]
 
@@ -126,49 +129,55 @@ class MultiModelPoseDetection:
         if pipeline_depth is None:
             pipeline_depth = 12 if two_stage else 4
         yield from _pipelined(
-            frames, lambda cd: self.detect_submit(*cd),
-            lambda handle: self._collect_phase1(handle, self.class_ids),
-            lambda per_class: self._collect_phase2(per_class, num_objects), pipeline_depth, two_stage,
+            frames, framed(lambda cd: self.detect_submit(*cd)),
+            lambda fh: (self._collect_phase1(fh[1], self.class_ids, frame=fh[0]), fh[0]),
+            lambda p1: self._collect_phase2(p1[0], num_objects, frame=p1[1]), pipeline_depth, two_stage,
         )
 
-    def _collect(self, handle, class_ids, num_objects, debug):
-        return self._collect_phase2(self._collect_phase1(handle, class_ids, debug), num_objects)
+    def _collect(self, handle, class_ids, num_objects, debug, frame=None):
+        return self._collect_phase2(self._collect_phase1(handle, class_ids, debug, frame), num_objects, frame)
 
-    def _collect_phase1(self, handle, class_ids, debug=None) -> dict:
+    def _collect_phase1(self, handle, class_ids, debug=None, frame=None) -> dict:
         """Stage 1: the frame's candidates split by class, each class's
         grouped and checked, and each ICP class's refine and verify
-        submitted. Returns {class_id: (groups, ICP handle or None)}."""
+        submitted. Returns {class_id: (groups, ICP handle or None)}.
+        `frame`: the submission's frame id, for the spans."""
         packed, color_c, depth_c = handle
-        packed = resolve_prefilter_packed(packed.cpu().numpy(), self, color_c, depth_c)
-        valid = packed[:, 4] > 0.5
-        tid = packed[valid, 0].astype(np.int64)
-        xs = packed[valid, 1]
-        ys = packed[valid, 2]
-        cls_idx = np.searchsorted(self.offsets, tid, side="right") - 1
-        per_class = {}
-        for c in class_ids:
-            i = self.class_ids.index(c)
-            sel = cls_idx == i
-            dbg = debug.get(c) if debug else None
-            if dbg is not None:
-                dbg.num_raw_matches = int(sel.sum())
-            grouped = group_candidate_poses(
-                tid[sel] - self.offsets[i], xs[sel], ys[sel], self.banks[c], self.props[c], self.settings,
-                self.cam, color_c, depth_c, self._hull_masks[c], debug=dbg,
-            )
-            icp = self.icps.get(c)
-            icp_handle = None
-            if icp is not None and self.settings.use_icp and grouped:
-                icp_handle = icp.refine_submit(depth_c, grouped)
-            per_class[c] = (grouped, icp_handle)
-        return per_class
+        with frame_span("frame.collect", frame):
+            with span("collect.copy"):
+                packed = packed.cpu()
+            packed = resolve_prefilter_packed(packed.numpy(), self, color_c, depth_c)
+            valid = packed[:, 4] > 0.5
+            tid = packed[valid, 0].astype(np.int64)
+            xs = packed[valid, 1]
+            ys = packed[valid, 2]
+            cls_idx = np.searchsorted(self.offsets, tid, side="right") - 1
+            per_class = {}
+            for c in class_ids:
+                i = self.class_ids.index(c)
+                sel = cls_idx == i
+                dbg = debug.get(c) if debug else None
+                if dbg is not None:
+                    dbg.num_raw_matches = int(sel.sum())
+                grouped = group_candidate_poses(
+                    tid[sel] - self.offsets[i], xs[sel], ys[sel], self.banks[c], self.props[c], self.settings,
+                    self.cam, color_c, depth_c, self._hull_masks[c], debug=dbg,
+                )
+                icp = self.icps.get(c)
+                icp_handle = None
+                if icp is not None and self.settings.use_icp and grouped:
+                    with span("collect.icp"):
+                        icp_handle = icp.refine_submit(depth_c, grouped)
+                per_class[c] = (grouped, icp_handle)
+            return per_class
 
-    def _collect_phase2(self, per_class: dict, num_objects: int) -> dict:
+    def _collect_phase2(self, per_class: dict, num_objects: int, frame=None) -> dict:
         """Stage 2: each class's ICP results and final poses."""
         results = {}
         for c, (grouped, icp_handle) in per_class.items():
             if icp_handle is None:
                 results[c] = [g[0] for g in grouped[:num_objects]]
             else:
-                results[c] = _first_verified(self.icps[c].refine_collect(icp_handle), num_objects)
+                with frame_span("frame.collect", frame), span("collect.icp"):
+                    results[c] = _first_verified(self.icps[c].refine_collect(icp_handle), num_objects)
         return results

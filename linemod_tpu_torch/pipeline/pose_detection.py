@@ -29,6 +29,12 @@ backend turns them on: `host_quant` quantizes the frame on the host
 uploads the color frame delta-encoded (ops/detect_core.delta_encode_host).
 Every route gives the same packed array.
 
+Spans (utils/profiling) mark a frame's host work: `frame.submit` with
+`submit.recenter`, `submit.upload` and the match program's `match.*`;
+`frame.collect`, carrying the id its submission started, with
+`collect.copy` (the wait for the device and the copy), `collect.retry`,
+`collect.group`, `collect.checks` (a candidate) and `collect.icp`.
+
 Left out: the reference's collector threads, which serve a remote TPU link
 whose fetch takes ~50 ms. On the card `detect_submit` already returns at
 once, and collector threads would share the unlocked hull-mask cache and
@@ -63,6 +69,7 @@ from ..ops.postprocess import (
     reconstruct_pose,
 )
 from ..utils.native import quantize_frame
+from ..utils.profiling import frame_span, last_frame, span
 
 # banks above this many templates take the prefiltered cut
 BIG_BANK_TEMPLATES = 8192
@@ -82,7 +89,10 @@ def resolve_prefilter_packed(
     if packed.shape[0] != top_k + 1:
         return packed
     if packed[-1, 0] < 0.5:
-        packed = detect_frame(owner.exact_state, *owner.upload(color_c, depth_c)).cpu().numpy()
+        with span("collect.retry"):
+            retried = detect_frame(owner.exact_state, *owner.upload(color_c, depth_c))
+            with span("collect.copy"):
+                packed = retried.cpu().numpy()
         owner.retries += 1
     return packed[:top_k]
 
@@ -209,13 +219,17 @@ class PoseDetection:
         delta-encoded color (`delta_transport`) or the color frame; with a
         dual bank the depth goes too. Returns the packed tensor, not yet
         computed."""
-        if self.host_quant:
-            q0, q1 = quantize_frame(color_c)
-            return detect_frame_quant(self.state, self._to_device(q0, np.uint8), self._to_device(q1, np.uint8))
-        if self.delta_transport:
-            delta = self._to_device(delta_encode_host(np.asarray(color_c, np.uint8)), np.uint8)
-            return detect_frame_delta(self.state, delta, self._upload_depth(depth_c))
-        return detect_frame(self.state, *self.upload(color_c, depth_c))
+        with span("submit.upload"):
+            if self.host_quant:
+                program = detect_frame_quant
+                inputs = tuple(self._to_device(q, np.uint8) for q in quantize_frame(color_c))
+            elif self.delta_transport:
+                program = detect_frame_delta
+                delta = self._to_device(delta_encode_host(np.asarray(color_c, np.uint8)), np.uint8)
+                inputs = (delta, self._upload_depth(depth_c))
+            else:
+                program, inputs = detect_frame, self.upload(color_c, depth_c)
+        return program(self.state, *inputs)
 
     def detect(
         self, color: np.ndarray, depth: np.ndarray, num_objects: int = 1,
@@ -225,16 +239,21 @@ class PoseDetection:
 
         color: [H, W, 3] uint8 BGR; depth: [H, W] uint16/float mm. Returns a
         list of ObjectPose (CV camera frame, mm)."""
-        return self.detect_collect(self.detect_submit(color, depth), num_objects, debug)
+        handle = self.detect_submit(color, depth)
+        return self.detect_collect(handle, num_objects, debug, frame=last_frame())
 
     def detect_submit(self, color: np.ndarray, depth: np.ndarray):
         """Upload the recentred frame and launch the match program without
         waiting for it (`launch`); returns the handle for detect_collect. In
         color-only mode the depth image stays on the host, where the checks
-        read it; a dual bank uploads it too."""
-        color_c = self.recenter(np.ascontiguousarray(color))
-        depth_c = self.recenter(np.ascontiguousarray(depth))
-        return self.launch(color_c, depth_c), color_c, depth_c
+        read it; a dual bank uploads it too. Its `frame.submit` span starts
+        a frame; `utils/profiling.last_frame()` gives its id, to carry to
+        detect_collect beside the handle."""
+        with frame_span("frame.submit"):
+            with span("submit.recenter"):
+                color_c = self.recenter(np.ascontiguousarray(color))
+                depth_c = self.recenter(np.ascontiguousarray(depth))
+            return self.launch(color_c, depth_c), color_c, depth_c
 
     def detect_submit_batch(self, frames) -> tuple:
         """Launch the match program for several (color, depth) frames at
@@ -278,42 +297,53 @@ class PoseDetection:
             ):
                 yield from results
             return
+        # each handle travels with its frame id (framed), so that a frame's
+        # collection spans carry the id of its submission
         yield from _pipelined(
-            frames, lambda cd: self.detect_submit(*cd), self._collect_phase1,
-            lambda p1: self._collect_phase2(p1, num_objects), pipeline_depth, two_stage,
+            frames, framed(lambda cd: self.detect_submit(*cd)),
+            lambda fh: (self._collect_phase1(fh[1], frame=fh[0]), fh[0]),
+            lambda p1: self._collect_phase2(p1[0], num_objects, frame=p1[1]), pipeline_depth, two_stage,
         )
 
-    def detect_collect(self, handle, num_objects: int = 1, debug: DetectionDebug | None = None) -> list:
+    def detect_collect(
+        self, handle, num_objects: int = 1, debug: DetectionDebug | None = None, frame: int | None = None,
+    ) -> list:
         """Wait for one submitted frame, copy its packed candidates to the
         host, and run grouping, the checks and the pose math there (with
         ICP on, refine and verify each group). A frame whose prefiltered cut
-        is not proved exact is re-run first."""
-        return self._collect_phase2(self._collect_phase1(handle, debug), num_objects)
+        is not proved exact is re-run first. `frame`: the id its submission's
+        span started (utils/profiling.last_frame()), for the spans."""
+        return self._collect_phase2(self._collect_phase1(handle, debug, frame), num_objects, frame)
 
-    def _collect_phase1(self, handle, debug: DetectionDebug | None = None):
+    def _collect_phase1(self, handle, debug: DetectionDebug | None = None, frame: int | None = None):
         """Stage 1: the frame's candidates, grouped and checked; with ICP on,
         its refine and verify submitted (ops/icp.IcpRefiner.refine_submit).
         Returns (groups, ICP handle or None)."""
         packed, color_c, depth_c = handle
-        packed = resolve_prefilter_packed(packed.cpu().numpy(), self, color_c, depth_c)
-        valid = packed[:, 4] > 0.5
-        if debug is not None:
-            debug.num_raw_matches = int(valid.sum())
-        grouped = group_candidate_poses(
-            packed[valid, 0].astype(np.int64), packed[valid, 1], packed[valid, 2], self.bank,
-            self.props, self.settings, self.cam, color_c, depth_c, self._hull_masks, debug=debug,
-        )
-        icp_handle = None
-        if self.icp is not None and self.settings.use_icp and grouped:
-            icp_handle = self.icp.refine_submit(depth_c, grouped)
+        with frame_span("frame.collect", frame):
+            with span("collect.copy"):
+                packed = packed.cpu()
+            packed = resolve_prefilter_packed(packed.numpy(), self, color_c, depth_c)
+            valid = packed[:, 4] > 0.5
+            if debug is not None:
+                debug.num_raw_matches = int(valid.sum())
+            grouped = group_candidate_poses(
+                packed[valid, 0].astype(np.int64), packed[valid, 1], packed[valid, 2], self.bank,
+                self.props, self.settings, self.cam, color_c, depth_c, self._hull_masks, debug=debug,
+            )
+            icp_handle = None
+            if self.icp is not None and self.settings.use_icp and grouped:
+                with span("collect.icp"):
+                    icp_handle = self.icp.refine_submit(depth_c, grouped)
         return grouped, icp_handle
 
-    def _collect_phase2(self, phase1, num_objects: int = 1) -> list:
+    def _collect_phase2(self, phase1, num_objects: int = 1, frame: int | None = None) -> list:
         """Stage 2: the ICP results, if ICP ran, and the final poses."""
         grouped, icp_handle = phase1
         if icp_handle is None:
             return [g[0] for g in grouped[:num_objects]]
-        return _first_verified(self.icp.refine_collect(icp_handle), num_objects)
+        with frame_span("frame.collect", frame), span("collect.icp"):
+            return _first_verified(self.icp.refine_collect(icp_handle), num_objects)
 
 
 def _exact_state(state):
@@ -325,6 +355,17 @@ def _exact_state(state):
     return dataclasses.replace(
         state, cfg=dataclasses.replace(cfg, prefilter_sel=0, scan_chunk=cfg.scan_chunk or 4096)
     )
+
+
+def framed(submit):
+    """`submit` returning (frame id, handle): the id the submission's
+    `frame.submit` span started (None while recording is off)."""
+
+    def submit_framed(item):
+        handle = submit(item)
+        return last_frame(), handle
+
+    return submit_framed
 
 
 def _first_verified(results: list, num_objects: int) -> list:
@@ -389,10 +430,11 @@ def group_candidate_poses(
     Returns one list of poses per kept group (empty groups dropped)."""
     if len(tid) == 0:
         return []
-    groups = group_matches(xs, ys, settings.group_radius)
-    if debug is not None:
-        debug.num_groups = len(groups)
-    groups = discard_small_groups(groups, settings.discard_group_ratio)
+    with span("collect.group"):
+        groups = group_matches(xs, ys, settings.group_radius)
+        if debug is not None:
+            debug.num_groups = len(groups)
+        groups = discard_small_groups(groups, settings.discard_group_ratio)
     if debug is not None:
         debug.groups_kept = len(groups)
     if not groups:
@@ -404,35 +446,36 @@ def group_candidate_poses(
     for g in groups:
         group_poses = []
         for j in g:
-            t = int(tid[j])
-            xy = (xs[j], ys[j])
-            wh = bank.bbox[t, 2:4]
-            mask = hull_masks.get(t)
-            if mask is None:
-                mask = hull_mask(bank.hull[t], wh)
-                hull_masks[t] = mask
-            color_pct = color_check_host(color_c, mask, xy, lower, upper)
-            ok_color = color_pct > settings.percent_to_pass_check
-            if settings.use_depth_improvement:
-                scene_p20 = depth_p20_host(depth_c, xy, wh)
-                depth_diff = scene_p20 - float(bank.median_depth[t]) - settings.depth_offset
-                ok_depth = abs(depth_diff) < settings.distance_step
-                direct_depth = float(bank.z[t]) + depth_diff
-            else:
-                scene_p20 = -1.0
-                ok_depth = True
-                direct_depth = float(bank.z[t])
-            if debug is not None:
-                debug.checks.append(
-                    (t, float(color_pct), float(scene_p20), ok_color, ok_depth, (float(xy[0]), float(xy[1])))
-                )
-            if ok_color and ok_depth:
-                group_poses.append(
-                    reconstruct_pose(
-                        float(xs[j]), float(ys[j]), bank.bbox[t], bank.quat[t],
-                        direct_depth, cam,
+            with span("collect.checks"):
+                t = int(tid[j])
+                xy = (xs[j], ys[j])
+                wh = bank.bbox[t, 2:4]
+                mask = hull_masks.get(t)
+                if mask is None:
+                    mask = hull_mask(bank.hull[t], wh)
+                    hull_masks[t] = mask
+                color_pct = color_check_host(color_c, mask, xy, lower, upper)
+                ok_color = color_pct > settings.percent_to_pass_check
+                if settings.use_depth_improvement:
+                    scene_p20 = depth_p20_host(depth_c, xy, wh)
+                    depth_diff = scene_p20 - float(bank.median_depth[t]) - settings.depth_offset
+                    ok_depth = abs(depth_diff) < settings.distance_step
+                    direct_depth = float(bank.z[t]) + depth_diff
+                else:
+                    scene_p20 = -1.0
+                    ok_depth = True
+                    direct_depth = float(bank.z[t])
+                if debug is not None:
+                    debug.checks.append(
+                        (t, float(color_pct), float(scene_p20), ok_color, ok_depth, (float(xy[0]), float(xy[1])))
                     )
-                )
+                if ok_color and ok_depth:
+                    group_poses.append(
+                        reconstruct_pose(
+                            float(xs[j]), float(ys[j]), bank.bbox[t], bank.quat[t],
+                            direct_depth, cam,
+                        )
+                    )
             if len(group_poses) >= settings.number_wanted_poses:
                 break
         if group_poses:

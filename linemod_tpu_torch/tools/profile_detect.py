@@ -33,7 +33,6 @@ import numpy as np
 from ..cli import device_from_flag
 from ..ops.similarity_cuda import coarse_scores
 from ..ops.detect_core import detect_frame
-from ..ops.extract import downsample2
 from ..ops.matching import _planes_3d, match_templates
 from ..pipeline.pose_detection import PoseDetection
 from .fixture import load_fixture
@@ -67,7 +66,7 @@ def run(args) -> dict:
     print(f"profile_detect: {fx.bank.num_templates} templates, {args.frames} frames a row; {card}")
 
     def coarse_planes():
-        return _planes_3d(downsample2(colorf), cfg.t_coarse, state.max_cells_coarse)
+        return _planes_3d(colorf, cfg.t_coarse, state.max_cells_coarse, half=True)
 
     rows = {
         "coarse planes": coarse_planes,

@@ -71,7 +71,7 @@ def _crop(quant: torch.Tensor, t: int) -> torch.Tensor:
 def _both_levels(st: MatchState, c: torch.Tensor, x: dict) -> tuple:
     cfg = st.cfg
     return (_planes_3d(c, cfg.t_fine, st.max_cells_fine),
-            _planes_3d(downsample2(c), cfg.t_coarse, st.max_cells_coarse))
+            _planes_3d(c, cfg.t_coarse, st.max_cells_coarse, half=True))
 
 
 # (name, PERF.md §3 layer, key of the output it adds to x or None,

@@ -234,15 +234,21 @@ def test_missing_bank_and_no_frames_exit_2(tmp_path, command):
 
 
 def test_detect_profile_stages(tmp_path):
-    """--profile splits a frame into submit, fetch (the packed array's copy
-    to the host) and host_post, and times the PNG decode."""
+    """--profile prints the program's spans of the frame (frame.submit,
+    frame.collect and their parts) beside the detect call and the PNG
+    decode, in StageTimer.summary's format."""
     from linemod_tpu_torch.cli import main
 
     rc, out, _ = run_cli(main, ["detect", "--model", "lagergehaeuse.ply", "--profile", "--device", "cpu"])
     assert rc == 0
     stages = {line.split()[0]: line for line in out.splitlines()[2:]}
-    assert set(stages) == {"detect", "detect.submit", "detect.fetch", "detect.host_post", "decode"}
+    assert set(stages) == {
+        "detect", "decode", "frame.submit", "submit.recenter", "submit.upload", "match.quantize",
+        "match.planes", "match.cut", "match.refine", "match.pack", "frame.collect", "collect.copy",
+        "collect.group", "collect.checks",
+    }
     assert stages["detect"].endswith("x1") and stages["decode"].endswith("x2")
+    assert stages["frame.submit"].endswith("x1") and stages["match.quantize"].endswith("x2")
 
 
 @pytest.mark.parametrize("direction", ["port_imports_jax", "jax_imports_port"])
@@ -379,16 +385,17 @@ def test_stage_timer_summary_equals_jax():
 
 
 def test_stage_timer_sync_on_cpu_and_trace(tmp_path):
-    """A synchronising timer on a CPU device needs no card; trace() writes a
-    Chrome trace."""
-    from linemod_tpu_torch.utils.profiling import StageTimer, trace
+    """A synchronising timer on a CPU device needs no card; the spans
+    recorded inside its stage fold into it."""
+    from linemod_tpu_torch.utils.profiling import RECORDER, StageTimer, recording, span
 
     timer = StageTimer(sync=True, device="cpu")
-    with trace(str(tmp_path / "trace")):
-        with timer.stage("matmul"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert timer.counts["matmul"] == 1
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    RECORDER.take()
+    with recording(), timer.stage("matmul"), span("match.cut"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    timer.add_spans(RECORDER.take())
+    assert timer.counts["matmul"] == 1 and timer.counts["match.cut"] == 1
+    assert 0.0 < timer.totals["match.cut"] <= timer.totals["matmul"]
 
 
 def test_write_yamlcv_equals_jax(tmp_path):
