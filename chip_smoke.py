@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --quantizer   # phase 2's quantizer part alone
 
 Drives the port's paths on the card and checks them, in phases:
 
@@ -36,6 +37,10 @@ Drives the port's paths on the card and checks them, in phases:
    masked max on its real coarse planes [1025, rows, stride] with the dual
    state's triplets [2048, 128, 3], the fine refine on its real fine planes
    [401, rows, stride] with the dual cut's 512 candidates at window 4;
+   the color-gradient quantizer (`csrc/quantize.cu`) at both levels of the
+   fixture frame, orientations and magnitudes bit for bit, with its
+   bound (bytes) and the plain chain's time, and its launches a frame on
+   the main path (2, one a level);
 3. the main path: the fixture (640x480, the 1,950-template bank, ICP off)
    through `detect_submit` / `detect_collect`. The quantized maps equal the
    golden's with no pixel differing, the packed [512, 5] candidates equal
@@ -870,8 +875,10 @@ def tooling_phase(dev, card: str, bank, color_vsd: float) -> dict:
                       f"cli detect, synthetic frame {i}: {lines[i]!r} (JAX's VSD {synth['vsd'][k]:.5f})")
         check(lines[len(frames)].startswith(f"{len(frames)} frames, mean "), "cli detect: no mean line")
         stages = {line.split()[0] for line in lines[len(frames) + 1:]}
-        check(stages == {"detect", "detect.submit", "detect.fetch", "detect.host_post", "decode", "benchmark",
-                         "display"}, f"cli detect --profile stages {sorted(stages)}")
+        check(stages == {"decode", "detect", "benchmark", "display", "frame.submit", "submit.recenter",
+                         "submit.upload", "match.quantize", "match.planes", "match.cut", "match.refine", "match.pack",
+                         "frame.collect", "collect.copy", "collect.group", "collect.checks"},
+              f"cli detect --profile stages {sorted(stages)}")
         # each overlay reads back equal to the image drawn in memory
         det = proto.detector()
         for i in frames:
@@ -2014,6 +2021,103 @@ def tools_phase(dev, card: str, cam, main_vsd: float, main_add: float) -> dict:
     return launches
 
 
+def quantizer_phase(dev, card: str, det, color, depth) -> dict:
+    """Phase 2's quantizer (`csrc/quantize.cu`, `gradients.quantize_color_gradients`):
+    both pyramid levels of the fixture frame, the kernel against the plain
+    chain on the card bit for bit (orientations and magnitudes), the
+    kernel's event and device ms beside its bound (bytes: the color read
+    once, both outputs written once) and the plain version's; then the main
+    path's launches a frame through `detect` (2: one a level). Returns the
+    kernel's entry of the JSON line."""
+    from linemod_tpu_torch.ops import gradients
+    from linemod_tpu_torch.ops.extract import downsample2
+
+    quantize = gradients.quantize_color_gradients
+    colorf = torch.from_numpy(det.recenter(np.ascontiguousarray(color))).to(dev).float()
+    levels = {
+        "level 0": (lambda: quantize(colorf), lambda: gradients.quantize_color_gradients_plain(colorf)),
+        "level 1": (lambda: quantize(colorf, half=True),
+                    lambda: gradients.quantize_color_gradients_plain(downsample2(colorf))),
+    }
+    out = {}
+    for label, (kernel, plain) in levels.items():
+        (q, m), (pq, pm) = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(q, pq)
+        bits = int((m.view(torch.int32) != pm.view(torch.int32)).sum())
+        k_t, p_t = kernel_times(kernel), kernel_times(plain, PLAIN_LAUNCHES)
+        moved = nbytes(colorf, q, m)
+        bnd = bound(moved, 0)
+        phase(2, f"quantizer {label}: {tuple(colorf.shape)} -> {tuple(q.shape)}; max|kernel-plain| {err}, "
+                 f"magnitudes differing in their bits {bits}; kernel {fmt(k_t)}, plain {fmt(p_t)}, bound "
+                 f"{bnd[0]:.6f} ms by {bnd[1]} ({moved} B) ({card})")
+        check(err == 0 and bits == 0, f"quantizer {label}: kernel != plain")
+        out[label] = {"max_abs_err": err, "ms": k_t[0], "device_ms": k_t[1], "plain_ms": p_t[0],
+                      "plain_device_ms": p_t[1], "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": moved}
+    frames = 8
+    det.detect(color, depth, 1)
+    torch.cuda.synchronize()
+    quantize.launches = 0
+    for _ in range(frames):
+        det.detect(color, depth, 1)
+    torch.cuda.synchronize()
+    per_frame = quantize.launches / frames
+    phase(2, f"quantizer launches a frame on the main path (detect, {frames} frames): {per_frame:g}")
+    check(per_frame == 2, f"the main path launches the quantizer {per_frame:g} times a frame, want 2")
+    return {"name": "gradient_quant", "route": "cuda", "source": "linemod_tpu_torch/csrc/quantize.cu",
+            "replaces": "linemod_tpu/ops/gradients.py quantize_color_gradients (XLA operations, no Pallas kernel)",
+            "launches": per_frame, "levels": out}
+
+
+def card_and_build() -> str:
+    """Phase 0 (the card's line, which it returns) and phase 1's build of
+    every kernel source, with ptxas's registers and spills."""
+    from linemod_tpu_torch.ops import cuda_lib
+
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        smi = ""
+    card = smi.splitlines()[0] if smi else "nvidia-smi unavailable"
+    phase(0, f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    cuda_lib.build(cuda_lib.SOURCES)
+    phase(1, f"kernels built in {time.perf_counter() - t0:.2f} s")
+    for name, info in cuda_lib.build_info.items():
+        print(f"  {name}: {info['path']} ({info['seconds']:.2f} s)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print("  ptxas:", line.strip())
+    return card
+
+
+def quantizer_main() -> int:
+    """`python3 chip_smoke.py --quantizer`: phases 0 and 1's build, then
+    the quantizer's part of phase 2 alone and its JSON entry."""
+    from linemod_tpu_torch.config import load_model_properties, load_settings
+    from linemod_tpu_torch.models.template_bank import TemplateBank
+    from linemod_tpu_torch.pipeline.pose_detection import PoseDetection
+    from linemod_tpu_torch.utils.png import read_png
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = card_and_build()
+    cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
+    props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
+    bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
+    det = PoseDetection(bank, cam, settings, props, dev)
+    color = read_png(os.path.join(EXAMPLE, "benchmark", "img0.png"), "color")
+    depth = read_png(os.path.join(EXAMPLE, "benchmark", "depth0.png"), "anydepth")
+    print(json.dumps({"kernels": [quantizer_phase(dev, card, det, color, depth)]}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2021,7 +2125,7 @@ def main() -> int:
     from linemod_tpu_torch.config import load_model_properties, load_settings
     from linemod_tpu_torch.config import CameraParameters, ModelProperties, TemplateSettings
     from linemod_tpu_torch.models.template_bank import TemplateBank, concat_banks, make_synthetic_bank
-    from linemod_tpu_torch.ops import cuda_lib, probes
+    from linemod_tpu_torch.ops import probes
     from linemod_tpu_torch.ops import matching as matching_mod
     from linemod_tpu_torch.ops import similarity_cuda as sc
     from linemod_tpu_torch.ops.detect_core import detect_frame
@@ -2049,30 +2153,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    # -- phase 0: the card
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        ).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired):
-        smi = ""
-    card = smi.splitlines()[0] if smi else "nvidia-smi unavailable"
-    phase(0, f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    print(card, flush=True)
-
-    # -- phase 1: build the kernels and the banks
-    t0 = time.perf_counter()
-    cuda_lib.build(cuda_lib.SOURCES)
+    card = card_and_build()
     sc.load_library()
     probes.load_library()
-    phase(1, f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    for name, info in cuda_lib.build_info.items():
-        print(f"  {name}: {info['path']} ({info['seconds']:.2f} s)")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print("  ptxas:", line.strip())
 
+    # -- phase 1: the banks
     cam, settings = load_settings(os.path.join(EXAMPLE, "linemod_settings.yml"))
     props = load_model_properties(os.path.join(EXAMPLE, "models", "lagergehaeuse.ply"))
     bank = TemplateBank.load(os.path.join(EXAMPLE, "banks", "lagergehaeuse.npz"))
@@ -2152,6 +2237,7 @@ def main() -> int:
               f"{lookups / scan_times[label][0] / 1e9:.3f} G lookups/ms")
         err_c = max(err_c, err_s)
     check(err_c == 0, "coarse_scores kernel != plain")
+    quantizer = quantizer_phase(dev, card, det, color, depth)
 
     coarse_args = (coarse_p, state.off3_coarse, ch, cw)
     # the fine refine (2.2) at its four shapes: the main path's (the
@@ -2772,6 +2858,7 @@ def main() -> int:
          "icp": {"launches": icp_launches["coarse_max"]}, "sharded": sharded_launches(2),
          "tools_launches_a_frame": {tool: n_["coarse_max"] for tool, n_ in tool_launches.items()},
          **ingest_launches("coarse_max")},
+        quantizer,
         entry("bitcast_u8_to_i32", "probes.cu", "scripts/test_bitcast.py:23",
               probe_launches["bitcast_u8_to_i32"], err_p1, *probe_ms["bitcast_u8_to_i32"][:2], p1_bound,
               probe_ms["bitcast_u8_to_i32"][2]),
@@ -2791,4 +2878,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(sharded_rank(sys.argv[2]) if sys.argv[1:2] == ["--sharded-rank"] else main())
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(sys.argv[2]))
+    sys.exit(quantizer_main() if sys.argv[1:2] == ["--quantizer"] else main())

@@ -5,11 +5,12 @@ with a plain C interface, under `build/kernels/` at the root of the
 checkout, and bound with ctypes. A library's file name carries a hash of
 its source and the flags, so an edited kernel is rebuilt. `build(names)`
 starts one nvcc per source whose library is missing, all at once, and waits
-for every one of them; `load(name, signatures)` builds one source if needed
-and binds its C functions; `launch(...)` calls one of them on the current
-stream, the path every kernel wrapper takes. Every C function launches on
-the stream it is given, does not synchronise, and returns
-cudaGetLastError() (0 = launched).
+for every one of them; `load(name, signatures)` builds what is missing of
+`SOURCES` (the first kernel a process loads starts the nvcc of every
+source, so they build side by side) and binds the source's C functions;
+`launch(...)` calls one of them on the current stream, the path every
+kernel wrapper takes. Every C function launches on the stream it is given,
+does not synchronise, and returns cudaGetLastError() (0 = launched).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("similarity", "probes")
+SOURCES = ("similarity", "quantize", "probes")
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -86,14 +87,14 @@ def build(names=SOURCES) -> None:
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (once per source version) and load `csrc/<name>.cu`, binding
-    each C function in `signatures` ({function: ctypes argtypes}) with an int
-    return (a CUDA error code)."""
+    """Build (once per source version, beside the other missing `SOURCES`)
+    and load `csrc/<name>.cu`, binding each C function in `signatures`
+    ({function: ctypes argtypes}) with an int return (a CUDA error code)."""
     with _lock:
         lib = _libraries.get(name)
         if lib is not None:
             return lib
-        build([name])
+        build(SOURCES if name in SOURCES else [name])
         lib = ctypes.CDLL(build_info[name]["path"])
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

@@ -136,13 +136,12 @@ def select_scattered_features(score, quantized, candidate_mask, num_features: in
     return scan_select(cut_candidates(score, quantized, candidate_mask, num_features), num_features)
 
 
-def _levels(color, depth):
-    """Per level (color [B, h, w, 3], depth [B, h, w], mask [B, h, w]):
-    level 0 is the view, level 1 the color 2x2-averaged and the depth and
-    the eroded mask subsampled."""
+def _levels(depth):
+    """Per level (half, depth [B, h, w], mask [B, h, w]): level 0 is the
+    view, level 1 the color 2x2-averaged (the quantizer's `half`) and the
+    depth and the eroded mask subsampled."""
     mask0 = erode_mask(depth > 0, 1)
-    color1 = downsample2(color.permute(1, 2, 0, 3)).permute(2, 0, 1, 3)
-    return [(color, depth, mask0), (color1, depth[:, ::2, ::2], mask0[:, ::2, ::2])]
+    return [(False, depth, mask0), (True, depth[:, ::2, ::2], mask0[:, ::2, ::2])]
 
 
 def quantize_views(color, depth, dual_modality: bool = False) -> dict:
@@ -154,8 +153,8 @@ def quantize_views(color, depth, dual_modality: bool = False) -> dict:
     (0 = background). Color candidates are strong gradients, normal
     candidates any quantized normal, both inside the eroded object mask."""
     out = {}
-    for lvl, (c, d, m) in enumerate(_levels(color, depth)):
-        quant, mag2 = quantize_color_gradients(c)
+    for lvl, (half, d, m) in enumerate(_levels(depth)):
+        quant, mag2 = quantize_color_gradients(color, half=half)
         out[f"grad{lvl}"] = (mag2, quant, (quant != 0) & (mag2 > STRONG_THRESHOLD**2) & m)
         if dual_modality:
             nquant, nmag2 = quantize_normals(d)

@@ -14,12 +14,24 @@ fused multiply-add (one rounding instead of two), so `_fma` reproduces that
 contraction exactly; with it the quantized maps agree bit for bit with the
 JAX reference on the CPU. The angle's `atan2` is the C library's atanf
 algorithm (`atan2`), which XLA calls.
+
+`quantize_color_gradients` given a CUDA tensor launches the kernel of
+`csrc/quantize.cu` (one launch a pyramid level; with `half` it reads the
+level-0 frame and fuses the 2x2 downsample) or raises, and adds one to its
+`launches` count; given a CPU tensor it runs `quantize_color_gradients_plain`,
+the operation chain above, which is also what the card's tests hold the
+kernel to bit for bit. `ops/cuda_lib.py` builds the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
+
+from . import cuda_lib
 
 WEAK_THRESHOLD = 10.0
 NEIGHBOR_VOTES = 5  # of the 9 in a 3x3 patch
@@ -176,8 +188,9 @@ def _sep_conv2d(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray) -> torch.Tens
     )
 
 
-def quantize_color_gradients(img: torch.Tensor, weak: float = WEAK_THRESHOLD):
-    """Quantize image gradients to 8-bin orientation bitmasks.
+def quantize_color_gradients_plain(img: torch.Tensor, weak: float = WEAK_THRESHOLD):
+    """Quantize image gradients to 8-bin orientation bitmasks (the plain
+    PyTorch version of `quantize_color_gradients`).
 
     img: [..., H, W, 3] float (0..255, BGR). Returns (quantized [..., H, W]
     uint8 one-hot-or-zero, magnitude2 [..., H, W] float32 of the strongest
@@ -220,3 +233,48 @@ def quantize_color_gradients(img: torch.Tensor, weak: float = WEAK_THRESHOLD):
     onebit = torch.bitwise_left_shift(torch.ones_like(winner), winner).to(torch.uint8)
     quantized = torch.where(keep, onebit, torch.zeros_like(onebit))
     return quantized, best_mag2
+
+
+# ------------------------------------------------------------- the kernel ---
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# img, batch, src_h, src_w, half, strong2, quant, mag2, stream
+_SIGNATURES = {"gradient_quant": [_P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P]}
+_MAX_BATCH = 65535  # the kernel's grid takes the batch on blockIdx.z
+
+
+def quantize_color_gradients(img: torch.Tensor, weak: float = WEAK_THRESHOLD, half: bool = False):
+    """`quantize_color_gradients_plain(img, weak)`, or with `half` the same of
+    the 2x2-averaged image (`extract.downsample2` of each image: an odd last
+    row or column dropped).
+
+    img: [..., H, W, 3] float (0..255, BGR), the batch (if any) flattened
+    onto the kernel's grid. Returns (quantized [..., h, w] uint8,
+    magnitude2 [..., h, w] float32) at the level's (h, w)."""
+    img = img.to(torch.float32)
+    if img.dim() < 3 or img.shape[-1] != 3:
+        raise ValueError(f"want [..., H, W, 3] color, got {tuple(img.shape)}")
+    if img.device.type == "cpu":
+        if half:
+            from .extract import downsample2  # extract imports this module
+
+            h, w = img.shape[-3:-1]
+            views = img.reshape(-1, h, w, 3).permute(1, 2, 0, 3)
+            img = downsample2(views).permute(2, 0, 1, 3).reshape(*img.shape[:-3], h // 2, w // 2, 3)
+        return quantize_color_gradients_plain(img, weak)
+    img = img.contiguous()
+    lead, (src_h, src_w) = img.shape[:-3], img.shape[-3:-1]
+    h, w = (src_h // 2, src_w // 2) if half else (src_h, src_w)
+    batch = math.prod(lead)
+    if batch < 1 or batch > _MAX_BATCH or h < 1 or w < 1:
+        raise ValueError(f"the quantizer takes 1..{_MAX_BATCH} images of at least one pixel a level, "
+                         f"got {tuple(img.shape)} (half={half})")
+    quant = torch.empty((*lead, h, w), dtype=torch.uint8, device=img.device)
+    mag2 = torch.empty((*lead, h, w), dtype=torch.float32, device=img.device)
+    cuda_lib.launch("quantize", _SIGNATURES, "gradient_quant", img.device, img.data_ptr(), batch, src_h, src_w,
+                    int(half), float(np.float32(weak * weak)), quant.data_ptr(), mag2.data_ptr())
+    quantize_color_gradients.launches += 1
+    return quant, mag2
+
+
+quantize_color_gradients.launches = 0

@@ -54,7 +54,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from .extract import downsample2
 from .gradients import quantize_color_gradients
 from ..utils.profiling import span
 from .normals import quantize_normals
@@ -274,15 +273,12 @@ def _planes_from_quant(quants, t: int, max_cells: int) -> torch.Tensor:
 def _planes_3d(color: torch.Tensor, t: int, max_cells: int, depth=None, half: bool = False) -> torch.Tensor:
     """Quantize one pyramid level -> its linearized planes: the color
     modality's, then (given the depth, in dual mode) the normal modality's.
-    `half`: the level of the frame downsampled 2x (the coarse level; its
-    depth is strided, not averaged)."""
+    `half`: the level of the frame downsampled 2x (the coarse level; the
+    quantizer averages the color, the depth is strided)."""
     with span("match.quantize"):
-        if half:
-            color = downsample2(color)
-            depth = None if depth is None else depth[::2, ::2]
-        quants = [quantize_color_gradients(color)[0]]
+        quants = [quantize_color_gradients(color, half=half)[0]]
         if depth is not None:
-            quants.append(quantize_normals(depth)[0])
+            quants.append(quantize_normals(depth[::2, ::2] if half else depth)[0])
     return _planes_from_quant(quants, t, max_cells)
 
 

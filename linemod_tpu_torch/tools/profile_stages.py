@@ -35,7 +35,6 @@ import torch
 from ..cli import device_from_flag
 from ..ops import similarity_cuda as sc
 from ..ops.detect_core import _pack
-from ..ops.extract import downsample2
 from ..ops.gradients import quantize_color_gradients
 from ..ops.matching import (
     MatchState,
@@ -82,7 +81,7 @@ STAGES = (
     ("planes, both levels", "response planes", None, _both_levels),
     ("quantize L0", "response planes: quantize", "quant0", lambda st, c, x: quantize_color_gradients(c)[0]),
     ("downsample2 + quantize L1", "response planes: quantize", "quant1",
-     lambda st, c, x: quantize_color_gradients(downsample2(c))[0]),
+     lambda st, c, x: quantize_color_gradients(c, half=True)[0]),
     ("spread T=2 L0", "response planes: spread", "spread0",
      lambda st, c, x: spread_orientations(_crop(x["quant0"], st.cfg.t_fine), st.cfg.t_fine)),
     ("spread T=8 L1", "response planes: spread", "spread1",
