@@ -11,7 +11,10 @@ limit is printed beside every result.
 The inputs are laid out as the kernels read them: one byte a (orientation,
 pixel) response in (8 T^2 + 1) planes of `plane_shape` (the last all zero,
 where invalid features point), int32 (plane, sy, sx) triplets over the 64
-feature slots, int32 outputs.
+feature slots, int32 outputs. A dual-modality bank (color gradients and
+depth normals) has T = 5 at level 0, both modalities' planes (2 x 8 T^2 + 1:
+the normal planes follow the color ones) and 128 feature slots, the normal
+features' orientations read as 8-15.
 
 - `coarse_scores` (2.1): N templates x every coarse cell; the dense cut
   scans the padded bank, the prefiltered cut the rescan's templates (the
@@ -34,11 +37,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .reference.match import T_COARSE, T_FINE, T_FINE_DUAL
+
 HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 64 * 132 * 1.98e9
 CELLS_PER_ADD = 4
-T_FINE, T_COARSE = 2, 8
-SLOTS = 64
+SLOTS = 64  # feature slots a template a modality
 TRIPLET_BYTES = 12
 
 
@@ -59,16 +63,20 @@ def plane_shape(h: int, w: int, t: int, max_cells: int) -> tuple:
 
 
 class Geometry:
-    """The planes of both levels for a bank (padded arrays) and frame size."""
+    """The planes of both levels for a bank (padded arrays) and frame size;
+    `dual`: a dual-modality bank."""
 
-    def __init__(self, bbox: np.ndarray, width: int, height: int):
+    def __init__(self, bbox: np.ndarray, width: int, height: int, dual: bool = False):
+        modalities = 2 if dual else 1
+        self.t_fine = T_FINE_DUAL if dual else T_FINE
+        self.slots = modalities * SLOTS
         big = int(max(bbox[:, 2].max(), bbox[:, 3].max()))
-        mc_f = int(np.ceil(big / T_FINE)) + 1
+        mc_f = int(np.ceil(big / self.t_fine)) + 1
         mc_c = int(np.ceil(big / 2 / T_COARSE)) + 1
-        self.fine = plane_shape(height, width, T_FINE, mc_f)
+        self.fine = plane_shape(height, width, self.t_fine, mc_f)
         self.coarse = plane_shape(height // 2, width // 2, T_COARSE, mc_c)
-        self.fine_planes = 8 * T_FINE * T_FINE
-        self.coarse_planes = 8 * T_COARSE * T_COARSE
+        self.fine_planes = modalities * 8 * self.t_fine * self.t_fine
+        self.coarse_planes = modalities * 8 * T_COARSE * T_COARSE
 
     def plane_bytes(self, level: str) -> int:
         _, _, rows, stride = getattr(self, level)
@@ -80,7 +88,7 @@ def coarse_scores_work(geo: Geometry, live: np.ndarray) -> tuple:
     counts are `live`."""
     ch, cw = geo.coarse[:2]
     n = len(live)
-    nbytes = geo.plane_bytes("coarse") + n * SLOTS * TRIPLET_BYTES + 4 * n * ch * cw
+    nbytes = geo.plane_bytes("coarse") + n * geo.slots * TRIPLET_BYTES + 4 * n * ch * cw
     return nbytes, int(live.sum()) * ch * cw / CELLS_PER_ADD
 
 
@@ -92,31 +100,31 @@ def coarse_max_work(geo: Geometry, live: np.ndarray, wh: np.ndarray) -> tuple:
     ny = np.clip(ch - (wh[:, 1].astype(np.int64) + step - 1) // step, 0, ch)
     nx = np.clip(cw - (wh[:, 0].astype(np.int64) + step - 1) // step, 0, cw)
     n = len(live)
-    nbytes = geo.plane_bytes("coarse") + n * SLOTS * TRIPLET_BYTES + 8 * n + 4 * n
+    nbytes = geo.plane_bytes("coarse") + n * geo.slots * TRIPLET_BYTES + 8 * n + 4 * n
     return nbytes, int((ny * nx * live.astype(np.int64)).sum()) / CELLS_PER_ADD
 
 
 def fine_scores_work(geo: Geometry, feat0: torch.Tensor, valid0: torch.Tensor, cand_t: torch.Tensor,
                      cand_gy: torch.Tensor, cand_gx: torch.Tensor) -> tuple:
     """(bytes, int32 adds) of 2.2 for one frame's K candidates (feat0
-    [N, 64, 3], valid0 [N, 64] of the padded bank, on the candidates'
-    device)."""
+    [N, slots, 3], valid0 [N, slots] of the padded bank, the reference's,
+    on the candidates' device)."""
     _, _, rows, stride = geo.fine
-    win = -(-2 * T_COARSE // T_FINE)
+    t = geo.t_fine
+    win = -(-2 * T_COARSE // t)
     dev = cand_t.device
-    f = feat0[cand_t]  # [K, 64, 3] (x, y, ori)
+    f = feat0[cand_t]  # [K, slots, 3] (x, y, ori)
     v = valid0[cand_t]
-    plane = torch.where(v, (f[..., 2] * T_FINE + f[..., 1] % T_FINE) * T_FINE + f[..., 0] % T_FINE,
-                        geo.fine_planes)
-    sy = torch.where(v, f[..., 1] // T_FINE, 0)
-    sx = torch.where(v, f[..., 0] // T_FINE, 0)
-    origin = (cand_gy * 2 * T_COARSE // T_FINE) * stride + cand_gx * 2 * T_COARSE // T_FINE
+    plane = torch.where(v, (f[..., 2] * t + f[..., 1] % t) * t + f[..., 0] % t, geo.fine_planes)
+    sy = torch.where(v, f[..., 1] // t, 0)
+    sx = torch.where(v, f[..., 0] // t, 0)
+    origin = (cand_gy * 2 * T_COARSE // t) * stride + cand_gx * 2 * T_COARSE // t
     sub = (torch.arange(win, device=dev)[:, None] * stride + torch.arange(win, device=dev)[None, :]).reshape(-1)
-    flat = (plane * rows + sy) * stride + sx + origin[:, None]  # [K, 64]
+    flat = (plane * rows + sy) * stride + sx + origin[:, None]  # [K, slots]
     mask = torch.zeros(geo.plane_bytes("fine"), dtype=torch.bool, device=dev)
     mask[(flat[:, :, None] + sub).reshape(-1)] = True
     k = cand_t.shape[0]
-    nbytes = int(mask.sum().item()) + k * SLOTS * TRIPLET_BYTES + k * 12 + 4 * k * win * win
+    nbytes = int(mask.sum().item()) + k * geo.slots * TRIPLET_BYTES + k * 12 + 4 * k * win * win
     return nbytes, int(v.sum().item()) * win * win
 
 

@@ -10,7 +10,8 @@ row sliced off and a retried frame's rows in place), recorded as they are
 produced so that the check compares what the timed path used.
 
 The check, once the window has closed and the program's state is freed:
-a sample of the pool's frames, drawn from the seed, goes through the plain
+the seed's own frames, which the window sent once each, and a sample,
+drawn from the seed, of the frames it cycled go through the plain
 reference (`reference/`), and every answer of the window to one of those
 frames is compared with it: each packed row (template id, x, y, similarity
 and valid bit, exactly) and the frame's poses (translation, quaternion and
@@ -123,7 +124,7 @@ def port_detector(config: dict, mix: dict, bank: dict, device):
         rotationally_symmetrical=bool(model["rotationally_symmetrical"]),
         planes_of_symmetry=tuple(model["planes_of_symmetry"]),
     )
-    tb = TemplateBank(class_id=model["file"], dual_modality=False, **bank)
+    tb = TemplateBank(class_id=model["file"], dual_modality=inputs.dual(config), **bank)
     return PoseDetection(tb, CameraParameters(**inputs.camera(config, mix)),
                          TemplateSettings(**config["settings"]), props, device)
 
@@ -155,19 +156,25 @@ def run_loop(det, pool: list, keys, mix: dict) -> tuple:
     return answers, latencies, stamps
 
 
-def drive(det, pool: list, order: list, mix: dict, seconds: float) -> tuple:
-    """The mix's loop over `order` (pool indices, cycled), frames handed
-    over until `seconds` have passed: returns (sent, answers, window
-    seconds, latencies, each answer's seconds into the window)."""
+def drive(det, pool: list, order: list, mix: dict, seconds: float, once: list = ()) -> tuple:
+    """The mix's loop over `order` (pool indices, cycled), with the pool
+    frames `once` sent once each, every second frame from the window's
+    start, frames handed over until `seconds` have passed: returns (sent,
+    answers, window seconds, latencies, each answer's seconds into the
+    window)."""
     sent = []
     t0 = time.perf_counter()
     deadline = t0 + seconds
 
     def keys():
-        i = 0
+        i = j = 0
         while time.perf_counter() < deadline:
-            sent.append(order[i % len(order)])
-            i += 1
+            if j < len(once) and len(sent) % 2:
+                sent.append(once[j])
+                j += 1
+            else:
+                sent.append(order[i % len(order)])
+                i += 1
             yield sent[-1]
 
     answers, latencies, stamps = run_loop(det, pool, keys(), mix)
@@ -284,7 +291,7 @@ def reference_frames(config: dict, mix: dict, bank: dict, pool: list, frames: li
                      precision: str = "float32") -> tuple:
     """({pool index: (packed, poses, match.FrameResult)}, the reference's
     padded bank) of the plain reference over `frames`."""
-    ref_bank = ref_match.make_bank(bank, device)
+    ref_bank = ref_match.make_bank(bank, device, inputs.dual(config))
     cam = inputs.camera(config, mix)
     cache: dict = {}
     out = {}
@@ -292,7 +299,7 @@ def reference_frames(config: dict, mix: dict, bank: dict, pool: list, frames: li
         color, depth = (ref_post.recenter(a, cam) for a in pool[k])
         fr = ref_match.match_frame(ref_bank, torch.as_tensor(color, device=device),
                                    float(config["settings"]["detector_threshold"]), int(config["top_k"]),
-                                   precision)
+                                   precision, torch.as_tensor(depth.astype(np.float32), device=device))
         poses = ref_post.frame_poses(fr.packed, bank, config["settings"], config["model"], cam,
                                      color, depth, 1, cache)
         out[k] = (fr.packed, poses, fr)
@@ -326,7 +333,7 @@ def compare(window: Window, ref: dict) -> dict:
 
 def kernel_bounds(config: dict, mix: dict, bank: dict, ref_bank, ref: dict, traced: list) -> dict:
     """Each scan kernel's bound in seconds for each traced frame."""
-    geo = counts.Geometry(bank["bbox"], int(mix["width"]), int(mix["height"]))
+    geo = counts.Geometry(bank["bbox"], int(mix["width"]), int(mix["height"]), inputs.dual(config))
     live1 = ref_bank.valid1.sum(1)
     rescan = int(config.get("rescan_templates", 0))
     out = {"fine_scores": [], "coarse_scores": []}
@@ -356,25 +363,31 @@ def run_cell(config: dict, mix: dict, seed: int, seconds: float, trace: bool, de
     and the printing: {"run": Run, "numbers": the check's numbers,
     "memory_peak": bytes, "inputs": (bank, pool, checked frames), "ref":
     the reference's answers}."""
+    marks = [("start", t_start), ("imports", time.perf_counter())]
     rngs = inputs.streams(seed)
     bank = inputs.make_bank(config, rngs["fillers"])
-    pool = inputs.make_pool(mix, rngs["frames"])
-    checked = inputs.sample(len(pool), int(mix["check_frames"]), rngs["sample"])
-    order = list(range(len(pool)))
-    traced = checked * int(mix["trace_repeats"])
+    marks.append(("bank", time.perf_counter()))
+    pool, order, once = inputs.window_frames(mix, rngs["frames"])
+    marks.append(("pool", time.perf_counter()))
+    sampled = inputs.sample(len(order), int(mix["check_frames"]), rngs["sample"])
+    checked = sampled + once
+    traced = sampled * int(mix["trace_repeats"])
 
     det = port_detector(config, mix, bank, device)
+    marks.append(("detector", time.perf_counter()))
     rec = Recorder()
     rec.install()
     try:
         run_loop(det, pool, order[:WARM_FRAMES], mix)
         _sync(device)
         setup_s = time.perf_counter() - t_start
+        marks.append(("warm-up", t_start + setup_s))
+        log("set-up: " + ", ".join(f"{name} {b - a:.3f} s" for (_, a), (name, b) in zip(marks, marks[1:])))
         spans = []
         if trace:
             det.detect_submit = timed(det.detect_submit, spans)
         rec.active = True
-        sent, answers, window_s, latencies, stamps = drive(det, pool, order, mix, seconds)
+        sent, answers, window_s, latencies, stamps = drive(det, pool, order, mix, seconds, once)
         rec.active = False
         if trace:
             del det.detect_submit
@@ -386,7 +399,7 @@ def run_cell(config: dict, mix: dict, seed: int, seconds: float, trace: bool, de
         if trace:
             if torch.device(device).type == "cuda":
                 run.trace = trace_stretch(det, pool, traced, mix)
-            run.post_ms = post_ms(det, pool, checked, device)
+            run.post_ms = post_ms(det, pool, sampled, device)
         if torch.device(device).type == "cuda":
             _sync(device)
             memory_peak = int(torch.cuda.max_memory_allocated(device))

@@ -13,7 +13,15 @@ draws 63 valid features inside that bbox at each level (level 0 in
 [0, w) x [0, h), level 1 in [0, w // 2) x [0, h // 2)) with orientations
 0-7; the 64th slot is invalid, as in the committed bank. So each filler's
 fit box, which the prefiltered cut's masked max scores, has the real
-bank's spread.
+bank's spread. A dual-modality configuration's fillers then draw their
+normal features (`nfeat*`/`nvalid*`) by the same rule; a color
+configuration's stream of draws ends before them, so its arrays are the
+same as before the dual modality was known.
+
+The modality is the configuration's: `settings.only_color_modality` false
+is the dual one (color gradients and depth normals), whose committed bank
+file holds `nfeat0`, `nvalid0`, `nfeat1`, `nvalid1` beside the color
+features.
 
 The frames (`make_pool`): a canvas of the mix's size, cut into a grid of
 tiles; each tile holds the fixture scene (640x480 color and depth)
@@ -21,6 +29,14 @@ shifted by a seeded integer offset (|dx| <= max_dx, |dy| <= max_dy, zero
 fill), cropped about its centre to the tile; then seeded sensor noise:
 +-color_noise levels on each color value (clipped to 0..255) and
 +-depth_noise_mm on each nonzero depth.
+
+What a window sends (`window_frames`): the mix's `pool` frames drawn from
+one fixed stream (`FRAMES_SEED`), cycled, the same for every seed; and
+`check_frames` frames drawn from the seed, sent once each. How much host
+work a frame makes (candidates, groups, checks) depends on its shifts and
+noise: a pool drawn anew for each seed changed a run's work by up to a
+quarter from seed to seed, while the seed's own frames, a few among
+thousands, move it by well under one percent.
 """
 
 from __future__ import annotations
@@ -33,6 +49,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(ROOT)
 BANK_FIELDS = ("feat0", "valid0", "feat1", "valid1", "bbox", "quat", "z", "median_depth", "hull")
+DUAL_FIELDS = ("nfeat0", "nvalid0", "nfeat1", "nvalid1")
+FRAMES_SEED = 0  # the stream of the frames the window cycles, the same for every seed
 
 
 def load_json(path: str) -> dict:
@@ -53,41 +71,56 @@ def streams(seed: int) -> dict:
     return {k: np.random.default_rng(s) for k, s in zip(("fillers", "frames", "sample"), kids)}
 
 
-def load_committed(path: str) -> dict:
+def dual(config: dict) -> bool:
+    """Whether the configuration is dual-modality (color gradients and depth
+    normals)."""
+    return not config["settings"]["only_color_modality"]
+
+
+def bank_fields(is_dual: bool) -> tuple:
+    return BANK_FIELDS + (DUAL_FIELDS if is_dual else ())
+
+
+def load_committed(path: str, is_dual: bool = False) -> dict:
     with np.load(repo_path(path)) as z:
-        return {k: z[k] for k in BANK_FIELDS}
+        return {k: z[k] for k in bank_fields(is_dual)}
 
 
-def make_fillers(committed: dict, n: int, rng: np.random.Generator) -> dict:
-    """n filler templates (see the module docstring)."""
+def make_fillers(committed: dict, n: int, rng: np.random.Generator, is_dual: bool = False) -> dict:
+    """n filler templates (see the module docstring); with normal features
+    where the bank is dual-modality (`is_dual`)."""
     src = rng.integers(0, committed["bbox"].shape[0], n)
     out = {k: committed[k][src] for k in ("bbox", "quat", "z", "median_depth", "hull")}
     w = out["bbox"][:, 2].astype(np.int64)
     h = out["bbox"][:, 3].astype(np.int64)
     slots = committed["feat0"].shape[1]
-    for level, (fw, fh) in ((0, (w, h)), (1, (w // 2, h // 2))):
-        f = np.zeros((n, slots, 3), np.int16)
-        f[:, :63, 0] = np.floor(rng.random((n, 63)) * fw[:, None])
-        f[:, :63, 1] = np.floor(rng.random((n, 63)) * fh[:, None])
-        f[:, :63, 2] = rng.integers(0, 8, (n, 63))
-        v = np.zeros((n, slots), bool)
-        v[:, :63] = True
-        out[f"feat{level}"], out[f"valid{level}"] = f, v
+    prefixes = ("", "n") if is_dual else ("",)
+    for prefix in prefixes:
+        for level, (fw, fh) in ((0, (w, h)), (1, (w // 2, h // 2))):
+            f = np.zeros((n, slots, 3), np.int16)
+            f[:, :63, 0] = np.floor(rng.random((n, 63)) * fw[:, None])
+            f[:, :63, 1] = np.floor(rng.random((n, 63)) * fh[:, None])
+            f[:, :63, 2] = rng.integers(0, 8, (n, 63))
+            v = np.zeros((n, slots), bool)
+            v[:, :63] = True
+            out[f"{prefix}feat{level}"], out[f"{prefix}valid{level}"] = f, v
     return out
 
 
 def make_bank(config: dict, rng: np.random.Generator) -> dict:
     """The configuration's bank as arrays: the committed templates, then
-    `templates - committed` fillers."""
+    `templates - committed` fillers; with the normal features where the
+    configuration is dual."""
     spec = config["bank"]
-    committed = load_committed(spec["committed"])
+    is_dual = dual(config)
+    committed = load_committed(spec["committed"], is_dual)
     extra = int(spec["templates"]) - committed["bbox"].shape[0]
     if extra < 0:
         raise ValueError("the bank has fewer templates than the committed file")
     if not extra:
         return committed
-    fill = make_fillers(committed, extra, rng)
-    return {k: np.concatenate([committed[k], fill[k]]) for k in BANK_FIELDS}
+    fill = make_fillers(committed, extra, rng, is_dual)
+    return {k: np.concatenate([committed[k], fill[k]]) for k in committed}
 
 
 def camera(config: dict, mix: dict) -> dict:
@@ -135,6 +168,19 @@ def make_pool(mix: dict, rng: np.random.Generator) -> list:
         depth = np.where(depth > 0, depth.astype(np.int32) + noise, 0).clip(0, 65535).astype(np.uint16)
         pool.append((color, depth))
     return pool
+
+
+def window_frames(mix: dict, rng: np.random.Generator) -> tuple:
+    """(pool, cycled, once): the frames a window sends. `cycled`: the pool
+    indices of the mix's `pool` frames drawn from the fixed stream
+    FRAMES_SEED, the same for every seed, which the window cycles through,
+    so that every seed brings the same work; `once`: those of
+    `check_frames` frames drawn from `rng`, the seed's own, which the window
+    sends once each, so that every seed brings new frames to the check."""
+    cycled = make_pool(mix, np.random.default_rng(FRAMES_SEED))
+    once = make_pool(dict(mix, pool=int(mix["check_frames"])), rng)
+    n = len(cycled)
+    return cycled + once, list(range(n)), list(range(n, n + len(once)))
 
 
 def sample(pool_size: int, k: int, rng: np.random.Generator) -> list:

@@ -9,6 +9,12 @@ of the port's plane layout, plans and cuts:
   at level 1), OR-spread over the forward T x T window (zeros past the
   edge) and turned into 8 response maps, R_o(y, x) = the best of
   4 - (circular bin distance) over the spread byte's bits, at least 0;
+- a dual-modality bank (`make_bank(..., dual=True)`: its arrays hold
+  `nfeat*`/`nvalid*` beside the color features) also quantizes the depth's normals (`normals.quantize_normals`;
+  level 1 reads every second pixel of each second row) into 8 more response
+  maps, with T = 5 at level 0; its normal features read those maps, so a
+  template's raw score sums both modalities' responses and its similarity
+  divides by both modalities' valid features;
 - a template's raw score at grid cell (gy, gx) of a level is
   sum over its valid features (x, y, o) of R_o(gy*T + y, gx*T + x), read
   as 0 outside the cropped image; its similarity is
@@ -17,8 +23,9 @@ of the port's plane layout, plans and cuts:
   where its bbox does not fit: gy < H1/8 - ceil(h/16), gx < W1/8 - ceil(w/16);
 - the exact top-K of the flat [N * G] similarity, by similarity descending
   and then flat index ascending;
-- each candidate's window of ceil(16 / 2) = 8 x 8 level-0 cells from cell
-  (8 gy, 8 gx) is scored, the first maximum kept;
+- each candidate's window of ceil(16 / T0) x ceil(16 / T0) level-0 cells
+  (8 x 8 at T0 = 2, 4 x 4 at T0 = 5) from cell (16 gy // T0, 16 gx // T0)
+  is scored, the first maximum kept;
 - a candidate is valid where both similarities reach the threshold; the
   rows are sorted by fine similarity (stable), invalid rows set to
   (-1, 0, 0, -1, 0).
@@ -28,7 +35,7 @@ min(256, the next power of two of its size), with featureless 1-pixel
 templates). Also returned: what the kernels' bounds need (the cut's
 candidates and each template's masked max).
 
-Imports only numpy, torch and the reference's quantizer.
+Imports only numpy, torch and the reference's quantizers.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .normals import quantize_normals
 from .quantize import downsample2, quantize
 
 T_FINE = 2
+T_FINE_DUAL = 5
 T_COARSE = 8
 MAX_RESPONSE = 4
 _DIST = np.minimum((np.arange(8)[:, None] - np.arange(8)[None, :]) % 8,
@@ -60,16 +69,32 @@ def pad_count(n: int) -> int:
 class Bank:
     """The bank's arrays the match needs, padded, on one device."""
 
-    feat0: torch.Tensor  # [N, F, 3] int64 (x, y, ori), level 0
+    feat0: torch.Tensor  # [N, F, 3] int64 (x, y, map), level 0
     valid0: torch.Tensor  # [N, F] bool
     feat1: torch.Tensor  # [N, F, 3] int64, level 1
     valid1: torch.Tensor
     wh: torch.Tensor  # [N, 2] int64 bbox (w, h) at level 0
     n_real: int
+    dual: bool = False  # F holds the color features, then the normal ones (maps 8-15)
+
+    @property
+    def t_fine(self) -> int:
+        return T_FINE_DUAL if self.dual else T_FINE
 
 
-def make_bank(arrays: dict, device) -> Bank:
-    """Pad and upload: arrays holds feat0, valid0, feat1, valid1, bbox."""
+def make_bank(arrays: dict, device, dual: bool = False) -> Bank:
+    """Pad and upload: arrays holds feat0, valid0, feat1, valid1, bbox and,
+    for a dual-modality bank (`dual`), nfeat0, nvalid0, nfeat1, nvalid1
+    (appended to the color features, their orientations read as maps 8-15)."""
+    if dual:
+        def both(level):
+            normal = arrays[f"nfeat{level}"].astype(np.int64)
+            normal[..., 2] += 8
+            return (np.concatenate([arrays[f"feat{level}"].astype(np.int64), normal], axis=1),
+                    np.concatenate([arrays[f"valid{level}"], arrays[f"nvalid{level}"]], axis=1))
+
+        (f0, v0), (f1, v1) = both(0), both(1)
+        arrays = dict(arrays, feat0=f0, valid0=v0, feat1=f1, valid1=v1)
     n = arrays["bbox"].shape[0]
     pad = pad_count(n) - n
 
@@ -86,6 +111,7 @@ def make_bank(arrays: dict, device) -> Bank:
         valid1=dev(padded(arrays["valid1"], False)),
         wh=dev(padded(arrays["bbox"][:, 2:4], 1).astype(np.int64)),
         n_real=n,
+        dual=dual,
     )
 
 
@@ -109,20 +135,20 @@ def response_maps(quant: torch.Tensor, t: int) -> torch.Tensor:
 
 
 class _Reader:
-    """R_o(y, x) with zeros around: a flat padded copy of the response maps
-    plus a ninth all-zero map that invalid features read."""
+    """R_o(y, x) with zeros around: a flat padded copy of the M response
+    maps plus an all-zero map, the (M+1)-th, that invalid features read."""
 
     def __init__(self, resp: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor):
-        _, h, w = resp.shape
+        maps, h, w = resp.shape
         self.h, self.w = h, w
         my = int(feats[..., 1].max().item()) + 1 if feats.numel() else 1
         mx = int(feats[..., 0].max().item()) + 1 if feats.numel() else 1
         self.hp, self.wp = h + my, w + mx
-        pad = torch.zeros((9, self.hp, self.wp), dtype=torch.uint8, device=resp.device)
-        pad[:8, :h, :w] = resp
+        pad = torch.zeros((maps + 1, self.hp, self.wp), dtype=torch.uint8, device=resp.device)
+        pad[:maps, :h, :w] = resp
         self.flat = pad.reshape(-1)
         base = (feats[..., 2] * self.hp + feats[..., 1]) * self.wp + feats[..., 0]
-        self.base = torch.where(valid, base, 8 * self.hp * self.wp)  # [N, F]
+        self.base = torch.where(valid, base, maps * self.hp * self.wp)  # [N, F]
 
     def pixel_offsets(self, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         return ys * self.wp + xs
@@ -167,13 +193,22 @@ def exact_top_k(flat: torch.Tensor, k: int):
 
 
 def match_frame(bank: Bank, color: torch.Tensor, threshold: float, top_k: int,
-                precision: str = "float32") -> FrameResult:
-    """color: [H, W, 3] uint8 BGR on the bank's device (recentred)."""
+                precision: str = "float32", depth: torch.Tensor | None = None) -> FrameResult:
+    """color: [H, W, 3] uint8 BGR on the bank's device (recentred); depth:
+    [H, W] mm (recentred), read by a dual-modality bank only."""
+    t_fine = bank.t_fine
     img = color.float()
     q0 = quantize(img, precision)
     q1 = quantize(downsample2(img), precision)
-    resp0 = response_maps(q0, T_FINE)
+    resp0 = response_maps(q0, t_fine)
     resp1 = response_maps(q1, T_COARSE)
+    if bank.dual:
+        if depth is None:
+            raise ValueError("a dual-modality bank needs the depth")
+        n0 = quantize_normals(depth)[: q0.shape[0], : q0.shape[1]]
+        n1 = quantize_normals(depth[::2, ::2])[: q1.shape[0], : q1.shape[1]]
+        resp0 = torch.cat([resp0, response_maps(n0, t_fine)])
+        resp1 = torch.cat([resp1, response_maps(n1, T_COARSE)])
     dev = resp0.device
 
     # the dense scan at level 1
@@ -200,19 +235,19 @@ def match_frame(bank: Bank, color: torch.Tensor, threshold: float, top_k: int,
 
     # the fine refine at level 0
     fine = _Reader(resp0, bank.feat0, bank.valid0)
-    win = -(-step // T_FINE)
-    base_gy = cand_gy * step // T_FINE
-    base_gx = cand_gx * step // T_FINE
+    win = -(-step // t_fine)
+    base_gy = cand_gy * step // t_fine
+    base_gx = cand_gx * step // t_fine
     wy = torch.arange(win, device=dev).repeat_interleave(win)
     wx = torch.arange(win, device=dev).repeat(win)
-    pos = fine.pixel_offsets((base_gy[:, None] + wy[None]) * T_FINE, (base_gx[:, None] + wx[None]) * T_FINE)
+    pos = fine.pixel_offsets((base_gy[:, None] + wy[None]) * t_fine, (base_gx[:, None] + wx[None]) * t_fine)
     scores = fine.scores(cand_t, pos)  # [K, win * win]
     best = scores.argmax(dim=1)
     best_raw = scores.gather(1, best[:, None])[:, 0]
     nf0 = bank.valid0.sum(1).clamp(min=1)
     fsim = _percent(best_raw, nf0[cand_t])
-    x = (base_gx + best % win) * T_FINE
-    y = (base_gy + best // win) * T_FINE
+    x = (base_gx + best % win) * t_fine
+    y = (base_gy + best // win) * t_fine
 
     valid = (fsim >= threshold) & (top_sim >= threshold)
     order = torch.argsort(-torch.where(valid, fsim, -1.0), stable=True)

@@ -11,6 +11,10 @@ end-to-end metrics with --trace 0, its per-layer metrics with --trace 1),
 `device` and, with --trace 1, `breakdown`; last, `check`: each number the
 check compares with its limit, which also end standard error.
 
+Before numpy or torch is imported, the process fixes its thread pools
+(intra-op, OpenMP, BLAS) at one thread, and says so on standard error: one
+Python thread submits and collects the frames.
+
 Exits 3 without a result where torch sees no CUDA card or fewer cards than
 the cell asks for; exits 4 without a result where `jax`, `jaxlib`, `flax`
 or `linemod_tpu` were imported in this process.
@@ -29,6 +33,17 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "linemod_tpu")
+THREADS = 1  # each thread pool of the process
+THREAD_ENV = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+
+
+def fix_thread_pools() -> bool:
+    """Every thread pool at THREADS, through the environment that numpy's
+    BLAS and torch read when they are imported; returns whether neither
+    was imported yet."""
+    for k in THREAD_ENV:
+        os.environ[k] = str(THREADS)
+    return not ({"numpy", "torch"} & set(sys.modules))
 
 
 def forbidden_modules() -> list:
@@ -51,6 +66,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
+
+    before = fix_thread_pools()
+    print(f"host: thread pools at {THREADS}, set before numpy and torch: {before}", file=sys.stderr)
 
     from portbench import inputs
 

@@ -6,12 +6,12 @@ on the card (`cuda`, through `python3 -m portbench.control`)."""
 import json
 import subprocess
 import sys
-import time
 
 import pytest
 import torch
 
 from portbench import control, harness, inputs
+from portbench.tests.test_pb_faults import MODALITIES, run_small, small_cell
 
 
 def _cell(name):
@@ -19,12 +19,12 @@ def _cell(name):
     return harness.load_cell(manifest, next(c for c in manifest["workloads"] if c["name"] == name))
 
 
+@pytest.mark.parametrize("modality", MODALITIES)
 @pytest.mark.parametrize("seed", [3, 2**31 + 7])
-def test_control_fails_at_a_small_size(seed):
-    config, mix = _cell("pruned-2k.stream")
-    mix = dict(mix, width=320, height=240, pool=3, check_frames=3)
+def test_control_fails_at_a_small_size(seed, modality):
+    config, mix = small_cell(modality)
     dev = torch.device("cpu")
-    out = harness.run_cell(config, mix, seed, 1.0, False, dev, time.perf_counter(), log=lambda s: None)
+    out = run_small(modality, seconds=1.0, seed=seed)
     bank, pool, checked = out["inputs"]
     low = control.control_numbers(config, mix, bank, pool, out["run"].window, out["ref"], checked, dev)
     assert out["numbers"]["rows_off"] == 0 and low["compared"] == out["numbers"]["compared"]

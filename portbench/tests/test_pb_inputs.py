@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from portbench import inputs
+from portbench import harness, inputs
 
 MIXES = sorted(f[:-5] for f in os.listdir(os.path.join(inputs.ROOT, "traffic")) if f.endswith(".json"))
 SEEDS = (0, 2**31 + 12345, 9_007_199_254_740_993)
@@ -95,3 +95,55 @@ def test_bank_deterministic_and_sized():
 def test_sample_draws_distinct_frames():
     s = inputs.sample(32, 8, inputs.streams(11)["sample"])
     assert len(set(s)) == 8 and all(0 <= k < 32 for k in s)
+
+
+def test_dual_bank_carries_the_normal_features():
+    """A dual configuration's bank: the committed normal features, then
+    fillers' drawn by the color features' rule."""
+    cfg = inputs.load_json(os.path.join(inputs.ROOT, "configs", "pruned-2k.json"))
+    cfg = dict(cfg, settings=dict(cfg["settings"], only_color_modality=False),
+               bank={"committed": "portbench/data/lagergehaeuse_dual.npz", "templates": 2200})
+    assert inputs.dual(cfg)
+    bank = inputs.make_bank(cfg, inputs.streams(5)["fillers"])
+    assert set(bank) == set(inputs.BANK_FIELDS + inputs.DUAL_FIELDS) and bank["nfeat0"].shape == (2200, 64, 3)
+    with np.load(inputs.repo_path(cfg["bank"]["committed"])) as z:
+        assert all(np.array_equal(bank[k][:1950], z[k]) for k in inputs.DUAL_FIELDS)
+    w, h = bank["bbox"][1950:, 2, None], bank["bbox"][1950:, 3, None]
+    n0, n1 = bank["nfeat0"][1950:, :63].astype(int), bank["nfeat1"][1950:, :63].astype(int)
+    assert (n0[..., 0] < w).all() and (n0[..., 1] < h).all() and (n0 >= 0).all()
+    assert (n1[..., 0] < w // 2).all() and (n1[..., 1] < h // 2).all() and (n1 >= 0).all()
+    assert set(np.unique(n0[..., 2])) == set(range(8))
+    assert bank["nvalid0"][1950:, :63].all() and not bank["nvalid1"][1950:, 63].any()
+    assert not np.array_equal(bank["nfeat0"][1950:], bank["feat0"][1950:])
+
+
+def _key(frame):
+    return frame[0].tobytes() + frame[1].tobytes()
+
+
+@pytest.mark.parametrize("mix", MIXES)
+def test_window_cycles_the_same_frames_and_sends_the_seeds_own(mix):
+    """Every seed cycles the same frames (so brings the same work) and adds
+    `check_frames` of its own, which differ from seed to seed."""
+    m = dict(_mix(mix), pool=4, check_frames=3)
+    pa, ca, oa = inputs.window_frames(m, inputs.streams(SEEDS[0])["frames"])
+    pb, cb, ob = inputs.window_frames(m, inputs.streams(SEEDS[2])["frames"])
+    assert ca == cb == [0, 1, 2, 3] and oa == ob == [4, 5, 6] and len(pa) == len(pb) == 7
+    assert [_key(pa[k]) for k in ca] == [_key(pb[k]) for k in cb]
+    assert len({_key(f) for f in pa}) == 7
+    assert not {_key(pa[k]) for k in oa} & {_key(pb[k]) for k in ob}
+
+
+class _Stream:
+    """A detector whose stream answers each frame at once with the frame."""
+
+    def detect_stream(self, frames, num_objects, pipeline_depth):
+        yield from frames
+
+
+def test_window_sends_each_of_the_seeds_frames_once():
+    pool = list(range(10))
+    sent, answers, _, _, _ = harness.drive(_Stream(), pool, [0, 1, 2], {"loop": "stream", "pipeline_depth": 4},
+                                           0.05, once=[7, 8, 9])
+    assert len(sent) > 20 and answers == sent
+    assert sent[:7] == [0, 7, 1, 8, 2, 9, 0] and set(sent[7:]) == {0, 1, 2}
